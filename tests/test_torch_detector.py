@@ -1,0 +1,121 @@
+"""The port's match path end to end against the JAX package.
+
+Port ``Detector(device="cpu")`` (every kernel wrapper runs its plain twin
+on CPU tensors) against the JAX ``Detector(use_pallas=False)`` on the same
+template pyramids and frames: match lists compare as (template_id, x, y,
+similarity float32 bits), exactly. The full-size check holds the port to
+the committed golden of the flagship configuration (1024x1024 frame,
+1000-template x 63-feature bank), generated by
+tools/gen_torch_port_golden.py.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from shape_based_matching_tpu.utils import synthetic as jsyn
+from shape_based_matching_tpu_torch import Detector
+from shape_based_matching_tpu_torch.models.detector import _batch_pyramid
+from shape_based_matching_tpu_torch.ops.similarity import coarse_extract
+from shape_based_matching_tpu_torch.utils import synthetic as tsyn
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
+                      "torch_port_e2e1000_matches.json")
+
+
+def _keys(matches):
+    return [(m.template_id, m.x, m.y,
+             int(np.float32(m.similarity).view(np.uint32)))
+            for m in matches]
+
+
+@pytest.fixture(scope="module")
+def small():
+    """The bank of tests/test_interpret_dispatch.py, two 256^2 scenes, the
+    JAX match lists, and a port Detector on the same pyramids."""
+    jdet, templ = jsyn.build_rotated_detector(num_templates=6,
+                                              num_features=32, size=56)
+    jdet.use_pallas = False
+    frames = np.stack([jsyn.synthetic_scene(256, 256, templ, n_instances=2,
+                                            seed=s) for s in (5, 9)])
+    want = jdet.match_batch(frames, 80.0)
+    det = Detector(num_features=32, T=(4, 8), device="cpu")
+    det.class_templates["bench"] = jdet.class_templates["bench"]
+    return det, frames, want
+
+
+def test_match_equals_jax_b1(small):
+    det, frames, want = small
+    got = det.match(frames[0], 80.0)
+    assert len(got) > 0
+    assert _keys(got) == _keys(want[0])
+
+
+def test_match_batch_equals_jax_b2(small):
+    det, frames, want = small
+    got = det.match_batch(frames, 80.0)
+    assert [_keys(g) for g in got] == [_keys(w) for w in want]
+    assert all(len(g) for g in got)
+
+
+def test_forced_overflow_reruns_complete(small):
+    """cand_cap=4 overflows (this frame has 9 coarse candidates); the
+    frame re-runs at a bucket that holds every candidate, so the list
+    still equals JAX's."""
+    det, frames, want = small
+    lms = _batch_pyramid(torch.from_numpy(frames[:1]), det.T_at_level, 2,
+                         det.weak_threshold)
+    n_above = coarse_extract(lms[1], det._get_banks("bench")[1], 8,
+                             (128, 128), torch.tensor(80.0), 4)[5]
+    assert int(n_above[0]) > 4
+    got = det.match_batch(frames, 80.0, cand_cap=4)
+    assert [_keys(g) for g in got] == [_keys(w) for w in want]
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        Detector(device="cuda")
+
+
+def test_synthetic_and_bank_cache_equal_jax():
+    np.testing.assert_array_equal(tsyn.synthetic_shape_image(64, 2),
+                                  jsyn.synthetic_shape_image(64, 2))
+    templ = tsyn.synthetic_shape_image(32, 1)
+    np.testing.assert_array_equal(
+        tsyn.synthetic_scene(96, 128, templ, 3, seed=4),
+        jsyn.synthetic_scene(96, 128, templ, 3, seed=4))
+    path = tsyn.bank_cache_path(360, 63)
+    got, want = tsyn.load_bank_cache(path), jsyn.load_bank_cache(path)
+    assert len(got) == len(want) == 360
+    for tp_g, tp_w in zip(got, want):
+        for g, w in zip(tp_g, tp_w):
+            assert (g.width, g.height, g.tl_x, g.tl_y) == \
+                (w.width, w.height, w.tl_x, w.tl_y)
+            assert [(f.x, f.y, f.label) for f in g.features] == \
+                [(f.x, f.y, f.label) for f in w.features]
+
+
+def test_full_size_matches_committed_golden():
+    """The flagship frame through the port's CPU path equals the JAX
+    golden, overflow re-run included (this frame has more coarse
+    candidates than the default cap of 256)."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    cfg = golden["config"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pyramids = tsyn.load_bank_cache(os.path.join(root, cfg["bank"]))
+    det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                   device="cpu")
+    det.class_templates[golden["class_id"]] = pyramids
+    scene = tsyn.synthetic_scene(cfg["height"], cfg["width"],
+                                 tsyn.synthetic_shape_image(256, 0),
+                                 n_instances=cfg["n_instances"],
+                                 seed=cfg["scene_seed"])
+    got = det.match(scene, cfg["threshold"])
+    assert [list(k) for k in _keys(got)] == golden["matches"]
+    assert len(got) > 0
