@@ -5,15 +5,29 @@
 Phases, each reported on its own line:
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``shape_based_matching_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch twin on the card, bitwise, at the
-   main path's shapes (1024x1024 frames, the committed 1000-template x
-   63-feature rotation bank, T=(4, 8));
-4. the main path: ``Detector(device="cuda")`` matches the flagship frame
-   (B=1) and a batch of 8 frames; every kernel's launch counter must rise,
-   the B=1 list must equal the committed JAX golden, and each frame of the
-   batch must equal its own B=1 match;
-5. warm timings from CUDA events: each kernel against its twin, and the
-   end-to-end ms/frame at B=1 and frames/s at B=8.
+3. each kernel of the flagship path against its plain PyTorch twin on the
+   card, bitwise, at the path's shapes (1024x1024 frames, the committed
+   1000-template x 63-feature rotation bank, T=(4, 8)), the level maps
+   and the map-window kernel at the shapes of the frame's overflow re-run
+   (cap 1024, map route);
+4. the flagship path: ``Detector(device="cuda")`` matches the flagship
+   frame (B=1) and a batch of 8 frames; the launch counters of its
+   kernels (level maps and map window included) must rise, the B=1 list
+   must equal the committed JAX golden, and each frame of the batch must
+   equal its own B=1 match;
+5. warm timings from CUDA events: each kernel against its twin, the
+   window route against the map route at the re-run's cap, and the
+   end-to-end ms/frame at B=1 and frames/s at B=8;
+6. the dense-bank path: the committed 10,000-template bank on the same
+   frame. Its chain plan; the chain kernel against its twin and against
+   coarse.cu from scratch, the level maps and the map-window kernel
+   against their twins, all bitwise at the path's shapes; the B=1 match
+   (chain at the coarse level, overflow re-run at a cap of 4096 through
+   the map route) must equal its JAX golden and raise the counters of the
+   chain, level-map and map-window kernels; timings of each new kernel
+   against its twin, the chain against coarse.cu, the window route
+   against the map route at caps 1024, 4096 and 16384, and end to end at
+   B=1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -33,8 +47,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "goldens",
-                      "torch_port_e2e1000_matches.json")
+GOLDENS = os.path.join(ROOT, "tests", "goldens")
+GOLDEN = os.path.join(GOLDENS, "torch_port_e2e1000_matches.json")
+DENSE_GOLDEN = os.path.join(GOLDENS, "torch_port_e2e10000_matches.json")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 THRESHOLD = 85.0
 T_LEVELS = (4, 8)
@@ -82,23 +97,251 @@ def _keys(matches):
             for m in matches]
 
 
+def _scene(cfg):
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        synthetic_scene, synthetic_shape_image)
+
+    return synthetic_scene(cfg["height"], cfg["width"],
+                           synthetic_shape_image(256, 0),
+                           n_instances=cfg["n_instances"],
+                           seed=cfg["scene_seed"])
+
+
+def _map_route_check(lms: tuple, banks: list, sizes: list, thr, cap: int,
+                     plan=None) -> dict:
+    """The map route of an overflow re-run at candidate cap `cap`, step by
+    step as ``refine_by_maps`` takes it on frame 0 of `lms`: the coarse
+    candidates (through the chain `plan` when given), their distinct
+    templates and D bucket, the level-0 maps (kernel 4) and the map
+    window (kernel 9), each kernel held against its twin. Returns the
+    errors, the shapes and each kernel's arguments."""
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_maps_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine, map_refine_plain)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _D_BUCKETS, _flat_offsets, _window_origin, coarse_extract,
+        distinct_templates, gather_bank)
+
+    k, x, y, _, valid, n_above = coarse_extract(
+        lms[1], banks[1], T_LEVELS[1], sizes[1], thr, cap, plan)
+    T0, (w0, h0) = T_LEVELS[0], sizes[0]
+    W0, M0 = w0 // T0, (w0 // T0) * (h0 // T0)
+    K = banks[0].fx.shape[0]
+    slots, slot_of_k, n_distinct = distinct_templates(k, valid, K, K)
+    n = int(n_distinct)
+    D = next((d for d in _D_BUCKETS if n <= d < K), K)
+    off0 = _flat_offsets(gather_bank(banks[0], slots[:D]), T0, W0, M0,
+                         sizes[0])
+    maps_args = (lms[0], off0, M0)
+    maps = coarse_maps(*maps_args)
+    maps_err = _max_abs_err([(maps, coarse_maps_plain(*maps_args))])
+    wx, wy = _window_origin(banks[0], T0, sizes[0], k, x, y)
+    slot = slot_of_k[k]
+    live = valid & (slot >= 0)
+    mr_args = (maps, W0, slot, wx, wy, live)
+    mr_err = _max_abs_err(zip(map_refine(*mr_args),
+                              map_refine_plain(*mr_args)))
+    shape = (f"D={D} ({n} distinct of {min(int(n_above[0]), cap)} "
+             f"candidates) N={off0.shape[1]} M={M0}")
+    print(f"K4 level maps vs plain at cap {cap}: max_abs_err {maps_err}, "
+          f"{shape}")
+    print(f"K9 map refine vs plain at cap {cap}: max_abs_err {mr_err}, "
+          f"C={cap}, {int(live.sum())} live")
+    return {"maps_err": maps_err, "mr_err": mr_err, "D": D,
+            "n_distinct": n, "n_above": int(n_above[0]),
+            "maps_args": maps_args, "mr_args": mr_args,
+            "maps_shape": shape, "mr_shape": f"C={cap}, D={D}"}
+
+
+def _route_ms(lms: tuple, banks: list, sizes: list, thr, cap: int, plan,
+              iters: int) -> dict:
+    """Warm ms of the two refine routes of level 0 on the same candidates
+    (frame 0 of `lms`, cap `cap`): the window (kernel 8) and the map route
+    (distinct templates with their host read, gather, kernel 4, kernel
+    9)."""
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        coarse_extract, refine_by_maps, refine_candidates)
+
+    k, x, y, _, valid, _ = coarse_extract(
+        lms[1], banks[1], T_LEVELS[1], sizes[1], thr, cap, plan)
+    args = (lms[0], banks[0], T_LEVELS[0], sizes[0], k, x, y, valid, thr)
+    return {"cap": cap, "live": int(valid.sum()),
+            "window_ms": _time_ms(lambda: refine_candidates(*args), iters),
+            "map_ms": _time_ms(lambda: refine_by_maps(*args), iters)}
+
+
+def _print_routes(name: str, routes: list, card: str) -> None:
+    for r in routes:
+        print(f"time {name} refine at cap {r['cap']} ({r['live']} live): "
+              f"window route {r['window_ms']:.4f} ms, map route "
+              f"{r['map_ms']:.4f} ms on {card}")
+
+
+def _record(fn, src: str, replaces: str, err: int, launches: dict,
+            path: str, ms: float, plain_ms: float) -> dict:
+    return {"name": fn.__name__, "route": "cuda",
+            "source": "shape_based_matching_tpu_torch/csrc/" + src,
+            "replaces": "shape_based_matching_tpu/ops/pallas/" + replaces,
+            "path": path, "launches": launches[fn.__name__],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def dense_phase(card: str) -> tuple[list, dict]:
+    """Phase 6: the dense 10,000-template bank. Returns the kernels'
+    records and the phase's report."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import (
+        _batch_pyramid)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import (
+        chain_scores, chain_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_maps_plain, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine, map_refine_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold)
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        load_bank_cache)
+
+    golden = json.load(open(DENSE_GOLDEN))
+    cfg = golden["config"]
+    pyramids = load_bank_cache(os.path.join(ROOT, cfg["bank"]))
+    if pyramids is None or len(pyramids) != cfg["num_templates"]:
+        raise AssertionError(f"bank {cfg['bank']} missing or stale")
+    scene = _scene(cfg)
+    dev = torch.device(DEVICE)
+    det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                   device=DEVICE)
+    cid = golden["class_id"]
+    det.class_templates[cid] = pyramids
+    banks = det._get_banks(cid)
+    sizes = det._level_sizes(scene.shape)
+    thr = torch.tensor(THRESHOLD, dtype=torch.float32, device=dev)
+
+    # 1. the chain plan
+    t0 = time.perf_counter()
+    plan = det._get_chain(cid, sizes[1])
+    plan_s = time.perf_counter() - t0
+    if plan is None:
+        raise AssertionError("the planner declined the 10,000-template bank")
+    P = plan.prog_start.numel() - 1
+    visits, plain_visits = plan.slots.numel(), int(banks[1].nfeat.sum())
+    print(f"dense: chain plan {P} programs, {visits} slot visits against "
+          f"{plain_visits} plain ({visits / plain_visits:.4f}), planned "
+          f"and uploaded in {plan_s:.3f} s")
+
+    # 2. kernels against their twins, bitwise, at the path's shapes
+    lms = _batch_pyramid(torch.from_numpy(scene[None]).to(dev),
+                         det.T_at_level, det.pyramid_levels,
+                         det.weak_threshold)
+    T1, (w1, h1) = T_LEVELS[1], sizes[1]
+    W1, H1 = w1 // T1, h1 // T1
+    M1 = W1 * H1
+    pos = _positions(banks[1], T1, W1, H1)
+    rmin, _ = _rmin_for_threshold(banks[1].nfeat, thr)
+    off1 = _flat_offsets(banks[1], T1, W1, M1, sizes[1])
+    chain_args = (lms[1], plan, pos, rmin)
+    S, cnt = chain_scores(*chain_args)
+    chain_err = _max_abs_err(zip((S, cnt), chain_scores_plain(*chain_args)))
+    scratch_err = _max_abs_err(zip((S, cnt), coarse_scores(
+        lms[1], off1, pos, rmin, M1)))
+    print(f"K7 chain vs plain: max_abs_err {chain_err}; vs coarse.cu from "
+          f"scratch: max_abs_err {scratch_err}; K={off1.shape[0]} "
+          f"N={off1.shape[1]} M={M1}, candidates above threshold "
+          f"{int(cnt.sum())}")
+    cap = 4096
+    mr = _map_route_check(lms, banks, sizes, thr, cap, plan)
+    if chain_err or scratch_err or mr["maps_err"] or mr["mr_err"]:
+        raise AssertionError("a dense-path kernel disagrees")
+
+    # 3. the dense path through the kernels
+    kernels = (quant_spread, chain_scores, refine_windows, coarse_maps,
+               map_refine, coarse_scores)
+    for fn in kernels:
+        fn.launches = 0
+    det.refine_routes.clear()
+    got = det.match(scene, THRESHOLD)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"dense path: launches {launches}; refine routes "
+          f"{dict(det.refine_routes)}; {len(got)} matches")
+    if not all(launches[fn.__name__] for fn in kernels[:-1]) \
+            or launches["coarse_scores"]:
+        raise AssertionError(f"the dense path missed a kernel or scored "
+                             f"from scratch: {launches}")
+    if _keys(got) != golden["matches"]:
+        raise AssertionError(f"dense B=1 differs from the JAX golden: "
+                             f"{len(got)} vs {len(golden['matches'])}")
+    print(f"dense path: B=1 equals the JAX golden ({len(got)} matches, "
+          f"(tid, x, y, f32 bits))")
+
+    # 4. timings
+    iters = 20
+    table = (
+        (chain_scores, "chain.cu", "similarity_pallas.py:572", chain_err,
+         lambda: chain_scores(*chain_args),
+         lambda: chain_scores_plain(*chain_args),
+         f"K={off1.shape[0]} M={M1}, {visits} slots"),
+        (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
+         mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
+         lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"]),
+        (map_refine, "map_refine.cu", "refine_pallas.py:121", mr["mr_err"],
+         lambda: map_refine(*mr["mr_args"]),
+         lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"]),
+    )
+    records = []
+    for fn, src, replaces, err, kern, plain, shape in table:
+        ms = _time_ms(kern, iters)
+        plain_ms = _time_ms(plain, max(iters // 5, 2))
+        print(f"time dense {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms on {card}")
+        records.append(_record(fn, src, replaces, err, launches, "dense",
+                               ms, plain_ms))
+    scratch_ms = _time_ms(lambda: coarse_scores(lms[1], off1, pos, rmin, M1),
+                          iters)
+    routes = [_route_ms(lms, banks, sizes, thr, c, plan, iters)
+              for c in (1024, 4096, 16384)]
+    e2e_ms = _time_ms(lambda: det.match(scene, THRESHOLD), iters)
+    print(f"time dense coarse: chain {records[0]['ms']:.4f} ms, coarse.cu "
+          f"from scratch {scratch_ms:.4f} ms on {card}")
+    _print_routes("dense", routes, card)
+    print(f"time e2e B=1 1024^2 x 10000 templates: {e2e_ms:.4f} ms/frame "
+          f"on {card}")
+    report = {"chain_programs": P, "chain_slot_visits": visits,
+              "plain_slot_visits": plain_visits, "plan_seconds": plan_s,
+              "launches": launches, "n_matches_b1": len(got),
+              "coarse_from_scratch_ms": scratch_ms, "routes": routes,
+              "e2e_b1_ms": e2e_ms, "n_above": mr["n_above"],
+              "n_distinct": mr["n_distinct"], "D": mr["D"]}
+    return records, report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, ROOT)
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import (
-        _batch_pyramid)
+        _CAND_BUCKETS, _batch_pyramid)
     from shape_based_matching_tpu_torch.ops.cuda import build
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
-        coarse_scores, coarse_scores_plain)
+        coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine, map_refine_plain)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+        _flat_offsets, _positions, _rmin_for_threshold, _window_origin,
+        coarse_extract)
     from shape_based_matching_tpu_torch.utils.synthetic import (
         load_bank_cache, synthetic_scene, synthetic_shape_image)
 
@@ -171,20 +414,19 @@ def main() -> None:
 
     k, x, y, _, valid, n_above = coarse_extract(
         lms[1], banks[1], T1, sizes[1], thr, 256)
-    T0, (w0, h0) = T_LEVELS[0], sizes[0]
-    cx = torch.minimum((x * 2 + 1).clamp(min=8 * T0),
-                       w0 - banks[0].width[k] - 8 * T0)
-    cy = torch.minimum((y * 2 + 1).clamp(min=8 * T0),
-                       h0 - banks[0].height[k] - 8 * T0)
-    wx = (torch.div(cx, T0, rounding_mode="floor") - 8).to(torch.int32)
-    wy = (torch.div(cy, T0, rounding_mode="floor") - 8).to(torch.int32)
+    T0 = T_LEVELS[0]
+    wx, wy = _window_origin(banks[0], T0, sizes[0], k, x, y)
     k3_args = (lms[0], banks[0], T0, sizes[0], k, wx, wy, valid)
     k3_err = _max_abs_err(zip(refine_windows(*k3_args),
                               refine_windows_plain(*k3_args)))
     print(f"K3 refine vs plain: max_abs_err {k3_err}, "
           f"{int(valid.sum())} live of 256 candidates (n_above "
           f"{int(n_above[0])}), N={banks[0].fx.shape[1]}")
-    if k1_err or k2_err or k3_err:
+    # the frame overflows the cap of 256: its re-run at 1024 takes the
+    # map route
+    re_cap = next(c for c in _CAND_BUCKETS if c >= int(n_above[0]))
+    mr = _map_route_check(lms, banks, sizes, thr, re_cap)
+    if k1_err or k2_err or k3_err or mr["maps_err"] or mr["mr_err"]:
         raise AssertionError("a kernel disagrees with its plain twin")
 
     # 4. the main path through the kernels
@@ -192,17 +434,23 @@ def main() -> None:
     batch = np.stack([synthetic_scene(cfg["height"], cfg["width"], templ,
                                       n_instances=cfg["n_instances"],
                                       seed=s) for s in seeds])
-    kernels = (quant_spread, coarse_scores, refine_windows)
+    kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
+               map_refine, chain_scores)
     for fn in kernels:
         fn.launches = 0
+    det.refine_routes.clear()
     got1 = det.match(scene, THRESHOLD)
     got8 = det.match_batch(batch, THRESHOLD)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in kernels}
-    print(f"main path: launches {launches}; B=1 {len(got1)} matches, "
+    print(f"main path: launches {launches}; refine routes "
+          f"{dict(det.refine_routes)}; B=1 {len(got1)} matches, "
           f"B=8 {[len(m) for m in got8]} matches")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    # the planner declines this sparse bank: no chain
+    if not all(launches[fn.__name__] for fn in kernels[:-1]) \
+            or launches["chain_scores"]:
+        raise AssertionError(f"a kernel was not launched, or the chain "
+                             f"was: {launches}")
     if _keys(got1) != golden["matches"]:
         raise AssertionError(f"B=1 differs from the JAX golden: "
                              f"{len(got1)} vs {len(golden['matches'])} "
@@ -216,8 +464,6 @@ def main() -> None:
 
     # 5. timings
     iters = 50
-    pallas = "shape_based_matching_tpu/ops/pallas/"
-    csrc = "shape_based_matching_tpu_torch/csrc/"
     table = (
         (quant_spread, "frontend.cu", "frontend_pallas.py:108", k1_err,
          lambda: quant_spread(full[:1], det.weak_threshold, T0),
@@ -231,6 +477,12 @@ def main() -> None:
          lambda: refine_windows(*k3_args),
          lambda: refine_windows_plain(*k3_args),
          f"C=256 N={banks[0].fx.shape[1]}"),
+        (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
+         mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
+         lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"]),
+        (map_refine, "map_refine.cu", "refine_pallas.py:121", mr["mr_err"],
+         lambda: map_refine(*mr["mr_args"]),
+         lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"]),
     )
     records = []
     for fn, src, replaces, err, kern, plain, shape in table:
@@ -238,10 +490,10 @@ def main() -> None:
         plain_ms = _time_ms(plain, iters // 5)
         print(f"time {fn.__name__} [{shape}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms on {card}")
-        records.append({"name": fn.__name__, "route": "cuda",
-                        "source": csrc + src, "replaces": pallas + replaces,
-                        "launches": launches[fn.__name__],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        records.append(_record(fn, src, replaces, err, launches, "flagship",
+                               ms, plain_ms))
+    routes = [_route_ms(lms, banks, sizes, thr, re_cap, None, iters)]
+    _print_routes("flagship", routes, card)
     e2e_ms = _time_ms(lambda: det.match(scene, THRESHOLD), iters)
     per_call = []
     for _ in range(100):  # match() ends in a download, so each call syncs
@@ -256,7 +508,13 @@ def main() -> None:
           f"B=8: {b8_ms:.4f} ms/batch = {fps:.1f} frames/s on {card}")
     report.update(kernels=records, e2e_b1_ms=e2e_ms, e2e_b1_p50_ms=p50,
                   e2e_b1_p90_ms=p90, b8_ms=b8_ms, fps_b8=fps,
-                  launches=launches, n_matches_b1=len(got1))
+                  launches=launches, n_matches_b1=len(got1), routes=routes,
+                  rerun_cap=re_cap, n_distinct=mr["n_distinct"], D=mr["D"])
+
+    # 6. the dense-bank path
+    dense_records, report["dense"] = dense_phase(card)
+    records += dense_records
+    report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -1,11 +1,16 @@
 // Coarse template scoring with per-template threshold counts:
 //   S[b, k, j] = sum_n lmflat[b, off[k, n] + j]          for j < M
 //   cnt[b, k] += #{ j : j < pos[k] and S[b, k, j] >= rmin[k] }
+// With cnt null the count is off (pos and rmin are not read): S alone is
+// the unmasked score map of every template, as the refine level's map
+// route needs it.
 //
 // Replaces the TPU kernel shape_based_matching_tpu/ops/pallas/
-// similarity_pallas.py::_make_rotate_kernel(counted=...) as run by
-// _run_rotate_kernel from _coarse_words_pallas_counted (the packed4
-// route). Plain twin: ops/cuda/coarse.py::coarse_scores_plain.
+// similarity_pallas.py::_make_rotate_kernel as run by _run_rotate_kernel:
+// counted from _coarse_words_pallas_counted (the packed4 route), and
+// uncounted from _coarse_words_pallas and _coarse_similarity_pallas (full
+// maps, mask_positions=False). Plain twins: ops/cuda/coarse.py::
+// coarse_scores_plain and coarse_maps_plain.
 //
 // A feature's shift is an address add into the one contiguous lmflat
 // buffer (linear memories plus an M-byte zero tail), so the reference's
@@ -64,17 +69,20 @@ coarse_kernel(const uint8_t* __restrict__ lmflat, long long lm_stride,
     }
   }
 
+  int* row = S + (static_cast<size_t>(b) * K + k) * M;
+#pragma unroll
+  for (int u = 0; u < CELLS; ++u) {
+    const int j = j0 + u * THREADS;
+    if (j < M) row[j] = acc[u];
+  }
+  if (cnt == nullptr) return;  // uniform over the grid
   const int p_k = pos[k];
   const int r_k = rmin[k];
-  int* row = S + (static_cast<size_t>(b) * K + k) * M;
   int c = 0;
 #pragma unroll
   for (int u = 0; u < CELLS; ++u) {
     const int j = j0 + u * THREADS;
-    if (j < M) {
-      row[j] = acc[u];
-      c += (j < p_k) && (acc[u] >= r_k);
-    }
+    c += (j < M) && (j < p_k) && (acc[u] >= r_k);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);

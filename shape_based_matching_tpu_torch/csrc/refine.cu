@@ -18,16 +18,19 @@
 // set its time at the main path's sizes. Design: one block of 256 threads
 // per candidate, thread (rr, cc) owns one window cell and sums its byte
 // over the features; the features' base addresses are computed once per
-// block into shared memory, in chunks, so any feature count works. No
-// SMEM meta limit, no feature chunking across launches. Candidates with
-// live == 0 do no work and report best = raw = 0.
+// block into shared memory, in chunks, so any feature count works: no
+// SMEM meta limit, no feature chunking across launches. The block argmax
+// is argmax.cuh's. Candidates with live == 0 do no work and report
+// best = raw = 0.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "argmax.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;  // one per window cell
+constexpr int THREADS = sbm::ARGMAX_THREADS;  // one per window cell
 constexpr int FEAT_CHUNK = 256;
 
 __global__ void __launch_bounds__(THREADS)
@@ -84,32 +87,9 @@ refine_kernel(const uint8_t* __restrict__ lmflat, long long lm_stride,
     }
   }
 
-  // first-max argmax over the 256 cells: ties go to the lower index
   int v = acc, i = tid;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ov = __shfl_down_sync(0xffffffffu, v, o);
-    const int oi = __shfl_down_sync(0xffffffffu, i, o);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-  if ((tid & 31) == 0) {
-    s_val[tid >> 5] = v;
-    s_idx[tid >> 5] = i;
-  }
-  __syncthreads();
+  sbm::block_argmax(&v, &i, s_val, s_idx);
   if (tid == 0) {
-    v = s_val[0];
-    i = s_idx[0];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) {
-      if (s_val[w] > v || (s_val[w] == v && s_idx[w] < i)) {
-        v = s_val[w];
-        i = s_idx[w];
-      }
-    }
     best_out[ci] = i;
     raw_out[ci] = v;
   }

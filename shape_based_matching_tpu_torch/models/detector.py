@@ -2,13 +2,21 @@
 
 A frame's match runs as one device step per class for B frames at once:
 ``_batch_pyramid`` (pyrDown, the fused frontend kernel, linear memories
-per level), then ``_match_batch_class`` (coarse scoring kernel with
-counted candidate extraction at the top level, then the window refine
-kernel at every finer level), then one device-to-host transfer, the
-``Match`` list and ``_sort_dedup``. The candidate cap is static; a frame
-whose exact candidate count ``n_above`` exceeds it re-runs the same step
-at the smallest ``_CAND_BUCKETS`` cap that holds all of them (or at
-``n_above`` past the last bucket), so the match list is always complete.
+per level), then ``_match_batch_class`` (coarse scoring with counted
+candidate extraction at the top level -- the delta-chain kernel when the
+bank has a chain plan at this frame size, the plain coarse kernel
+otherwise -- then a refine step at every finer level), then one
+device-to-host transfer, the ``Match`` list and ``_sort_dedup``. The
+candidate cap is static; a frame whose exact candidate count ``n_above``
+exceeds it re-runs the same step at the smallest ``_CAND_BUCKETS`` cap
+that holds all of them (or at ``n_above`` past the last bucket), so the
+match list is always complete.
+
+Refine routes follow the JAX package's ``_refine_mode`` / ``_refine_level``
+(``detector.py:1034-1051``, ``:1244-1296`` there): the first step takes the
+window kernel; the re-run, at a cap of 1024 or more on a bank that is not
+pathological, takes the map route (level maps of the distinct candidate
+templates, then the map-window kernel), and the window otherwise.
 
 Results are bit-identical to the JAX package's ``Detector`` (template id,
 position and float32 similarity of every match).
@@ -16,16 +24,20 @@ position and float32 similarity of every match).
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..ops.chain_plan import ChainPlan, plan_chain
+from ..ops.cuda.chain import plan_to_device
 from ..ops.cuda.frontend import quant_spread
 from ..ops.filters import pyr_down_u8
 from ..ops.response import build_lm_from_spread
-from ..ops.similarity import coarse_extract, refine_candidates
-from ..utils.convert import pyramids_to_banks
+from ..ops.similarity import (LevelBank, coarse_extract, refine_by_maps,
+                              refine_candidates)
+from ..utils.convert import level_max_dims, pyramids_to_banks
 from .template import TemplatePyramid
 
 
@@ -52,6 +64,11 @@ class Match:
 # Candidate-capacity buckets: a frame that overflows the static cap re-runs
 # at the smallest bucket >= its true above-threshold count.
 _CAND_BUCKETS = (256, 1024, 4096, 16384, 65536)
+# The re-run takes the map route from this cap on: the JAX package's
+# ``_refine_level`` rule, kept so that both packages take the same routes.
+# It is not tuned to the GPU; chip_smoke.py times both routes at caps
+# 1024, 4096 and 16384.
+_MAP_MIN_CAP = 1024
 
 
 def _sort_dedup(matches: list) -> list:
@@ -98,16 +115,25 @@ def _batch_pyramid(sources: torch.Tensor, T: tuple, levels: int,
 
 
 def _match_batch_class(lmflats: tuple, banks: list, threshold: torch.Tensor,
-                       T: tuple, levels: int, sizes: tuple, cand_cap: int):
+                       T: tuple, levels: int, sizes: tuple, cand_cap: int,
+                       chain: ChainPlan | None = None,
+                       map_levels: tuple = ()):
     """matchClass for B frames (line2Dup.cpp:1160-1297): coarse scoring and
-    candidate extraction at the top level, then window refinement down to
-    level 0. Returns (k, x, y, score, valid) each [B, cand_cap] and
-    n_above [B]."""
+    candidate extraction at the top level (through `chain`, the coarse
+    bank's plan, when given), then refinement down to level 0, by the map
+    route at the levels in `map_levels` and by the window elsewhere.
+    Returns (k, x, y, score, valid) each [B, cand_cap] and n_above [B]."""
     k, x, y, sc, valid, n_above = coarse_extract(
-        lmflats[-1], banks[-1], T[-1], sizes[-1], threshold, cand_cap)
+        lmflats[-1], banks[-1], T[-1], sizes[-1], threshold, cand_cap, chain)
     for l in range(levels - 2, -1, -1):
-        k, x, y, sc, valid = refine_candidates(
-            lmflats[l], banks[l], T[l], sizes[l], k, x, y, valid, threshold)
+        if l in map_levels:
+            k, x, y, sc, valid = refine_by_maps(
+                lmflats[l], banks[l], T[l], sizes[l], k, x, y, valid,
+                threshold)
+        else:
+            k, x, y, sc, valid = refine_candidates(
+                lmflats[l], banks[l], T[l], sizes[l], k, x, y, valid,
+                threshold)
     return k, x, y, sc, valid, n_above
 
 
@@ -139,14 +165,43 @@ class Detector:
         self.weak_threshold = float(weak_threshold)
         self.class_templates: dict[str, list[TemplatePyramid]] = {}
         self._banks: dict[str, list] = {}
+        self._max_dims: dict[str, list] = {}
+        self._chain_plans: dict[tuple, ChainPlan | None] = {}
+        # refine levels run per route ("window", "maps"), for tests and
+        # profiles to see which route a match took
+        self.refine_routes: Counter = Counter()
 
     def _get_banks(self, class_id: str) -> list:
         banks = self._banks.get(class_id)
         if banks is None:
-            banks = pyramids_to_banks(self.class_templates[class_id],
-                                      self.pyramid_levels, self.device)
+            pyramids = self.class_templates[class_id]
+            banks = pyramids_to_banks(pyramids, self.pyramid_levels,
+                                      self.device)
             self._banks[class_id] = banks
+            self._max_dims[class_id] = level_max_dims(pyramids,
+                                                      self.pyramid_levels)
         return banks
+
+    def _get_chain(self, class_id: str, size_wh) -> ChainPlan | None:
+        """The coarse bank's delta-chain plan at this frame size, planned on
+        the host once per (class, size) and uploaded once; None when the
+        planner declines (a sparse bank keeps the plain coarse kernel)."""
+        key = (class_id, tuple(size_wh))
+        if key not in self._chain_plans:
+            bank = self._get_banks(class_id)[-1]
+            plan = plan_chain(LevelBank(*(f.cpu().numpy() for f in bank)),
+                              self.T_at_level[-1], size_wh)
+            self._chain_plans[key] = (None if plan is None
+                                      else plan_to_device(plan, self.device))
+        return self._chain_plans[key]
+
+    def _is_pathological(self, class_id: str, level: int, size_wh) -> bool:
+        """Whether a template of the class is wider or taller than the
+        level's image - 16T, where the border clamp inverts and features
+        fall off the image, so level maps no longer hold the windows."""
+        wmax, hmax = self._max_dims[class_id][level]
+        border = 16 * self.T_at_level[level]
+        return size_wh[0] - wmax < border or size_wh[1] - hmax < border
 
     def _level_sizes(self, hw) -> list[tuple]:
         h, w = int(hw[0]), int(hw[1])
@@ -197,19 +252,35 @@ class Detector:
         for class_id in class_ids:
             if class_id not in self.class_templates:
                 continue
-            banks = self._get_banks(class_id)
-            step = (banks, thr, self.T_at_level, self.pyramid_levels, sizes)
-            host = _to_host(_match_batch_class(lms, *step, cand_cap))
+            host = self._class_step(lms, class_id, thr, sizes, cand_cap)
             for b in range(B):
                 row = host[b]
                 n_above = int(row[-1])
                 if n_above > cand_cap:
                     cap = next((c for c in _CAND_BUCKETS if c >= n_above),
                                n_above)
-                    lms_b = tuple(f[b:b + 1] for f in lms)
-                    row = _to_host(_match_batch_class(lms_b, *step, cap))[0]
+                    row = self._class_step(tuple(f[b:b + 1] for f in lms),
+                                           class_id, thr, sizes, cap,
+                                           rerun=True)[0]
                 out[b].extend(self._matches(row, class_id))
         return [_sort_dedup(m) for m in out]
+
+    def _class_step(self, lms: tuple, class_id: str, thr: torch.Tensor,
+                    sizes: tuple, cap: int, rerun: bool = False):
+        """One device step of a class at candidate cap `cap` and its one
+        download (see _to_host). The first step refines through the
+        window; an overflow re-run at a cap of _MAP_MIN_CAP or more takes
+        the map route at every level whose bank is not pathological."""
+        levels = self.pyramid_levels - 1
+        maps = tuple(l for l in range(levels)
+                     if rerun and cap >= _MAP_MIN_CAP
+                     and not self._is_pathological(class_id, l, sizes[l]))
+        self.refine_routes["maps"] += len(maps)
+        self.refine_routes["window"] += levels - len(maps)
+        return _to_host(_match_batch_class(
+            lms, self._get_banks(class_id), thr, self.T_at_level,
+            self.pyramid_levels, sizes, cap,
+            self._get_chain(class_id, sizes[-1]), maps))
 
     @staticmethod
     def _matches(row: np.ndarray, class_id: str) -> list[Match]:

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``
--- no PyTorch headers, so a cold build takes seconds. The build runs at
-first use into ``build/sbm_torch_kernels/`` at the repository root; the
-library's file name carries a hash of the sources and flags, so an edited
-source never loads a stale library.
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects link into ONE shared
+library with a plain C interface, loaded with ``ctypes`` -- no PyTorch
+headers, so a cold build takes seconds. The build runs at first use into
+``build/sbm_torch_kernels/`` at the repository root; the library's file
+name carries a hash of the sources and flags, so an edited source never
+loads a stale library.
 
 ``--fmad=false`` keeps every float multiply and add a separate IEEE
 rounding (the fastAtan2 polynomial in ``frontend.cu`` must round exactly
@@ -35,8 +36,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "sbm_torch_kernels")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
@@ -49,7 +50,14 @@ SIGNATURES = {
     # img, out, B, H, W, T, thr_sq, stream
     "sbm_quant_spread": (_P, _P, _I, _I, _I, _I, _F, _P),
     # lmflat, lm_stride, off, pos, rmin, S, cnt, B, K, N, M, stream
+    # (pos, rmin and cnt null: the count is off)
     "sbm_coarse_scores": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # lmflat, lm_stride, prog_start, slot_start, slots, pos, rmin, S, cnt,
+    # B, P, K, M, stream
+    "sbm_chain_scores": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P),
+    # Sfull, D, M, W, slot, wx, wy, live, best, raw, B, C, stream
+    "sbm_map_refine": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # lmflat, lm_stride, fx, fy, label, fvalid, k, wx, wy, live,
     # best, raw, B, C, N, w_img, h_img, T, stream
     "sbm_refine_windows": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -82,7 +90,7 @@ def library_path() -> str:
 
 def build() -> tuple[str, float]:
     """Compile the library unless it exists; returns (path, seconds spent
-    compiling). nvcc's resource report (-Xptxas -v) goes to nvcc.log
+    compiling). nvcc's resource reports (-Xptxas -v) go to nvcc.log
     beside the library."""
     path = library_path()
     if os.path.isfile(path):
@@ -91,15 +99,32 @@ def build() -> tuple[str, float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cus = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(cu)}.{os.getpid()}"
+                         ".o") for cu in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-                           *cus], capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
+                               "-o", obj, cu], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cu, obj in zip(cus, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(cu, proc.returncode, log) for cu, proc, log
+              in zip(cus, procs, logs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed = [("link", link.returncode, logs[-1])]
     seconds = time.perf_counter() - t0
+    for obj in objs:
+        if os.path.isfile(obj):
+            os.remove(obj)
     with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        f.write("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{os.path.basename(name)} ({rc}):\n{log[-4000:]}"
+            for name, rc, log in failed))
     os.replace(tmp, path)
     return path, seconds
 

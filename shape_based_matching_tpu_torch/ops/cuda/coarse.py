@@ -1,14 +1,16 @@
-"""Kernel 2: counted coarse scoring, ``csrc/coarse.cu``.
+"""Kernels 2 and 4: coarse scoring, ``csrc/coarse.cu``.
 
 ``coarse_scores(lmflat, off, pos, rmin, M)`` returns
 ``S[b, k, j] = sum_n lmflat[b, off[k, n] + j]`` for every cell j < M as
 ``[B, K, M]`` int32, and ``cnt[b, k]``, the number of cells with
-``j < pos[k]`` and ``S >= rmin[k]``, as ``[B, K]`` int32. It replaces the
-TPU kernel ``shape_based_matching_tpu/ops/pallas/similarity_pallas.py::
-_make_rotate_kernel`` in its counted form.
+``j < pos[k]`` and ``S >= rmin[k]``, as ``[B, K]`` int32.
+``coarse_maps(lmflat, off, M)`` is the same launch with the count off: the
+unmasked maps ``S`` alone. They replace the TPU kernel
+``shape_based_matching_tpu/ops/pallas/similarity_pallas.py::
+_make_rotate_kernel`` in its counted and uncounted forms.
 
-On a CPU tensor the wrapper runs ``coarse_scores_plain``; on a CUDA tensor
-it launches the kernel or raises.
+On a CPU tensor each wrapper runs its plain twin (``coarse_scores_plain``,
+``coarse_maps_plain``); on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ import torch
 from . import build
 
 
-def coarse_scores_plain(lmflat: torch.Tensor, off: torch.Tensor,
-                        pos: torch.Tensor, rmin: torch.Tensor, M: int):
-    """Plain twin: one sliding-window gather per feature slot."""
+def coarse_maps_plain(lmflat: torch.Tensor, off: torch.Tensor, M: int):
+    """Plain twin of ``coarse_maps``: one sliding-window gather per
+    feature slot."""
     B = lmflat.shape[0]
     K, N = off.shape
     S = torch.zeros((B, K, M), dtype=torch.int32, device=lmflat.device)
@@ -28,9 +30,21 @@ def coarse_scores_plain(lmflat: torch.Tensor, off: torch.Tensor,
     windows = lmflat.unfold(1, M, 1)
     for n in range(N):
         S += windows[:, off[:, n].long()].to(torch.int32)
-    j = torch.arange(M, device=lmflat.device)
+    return S
+
+
+def count_live(S: torch.Tensor, pos: torch.Tensor, rmin: torch.Tensor):
+    """cnt [B, K]: cells of S [B, K, M] with j < pos[k] and S >= rmin[k]."""
+    j = torch.arange(S.shape[2], device=S.device)
     live = (j[None, :] < pos[:, None]) & (S >= rmin[:, None])
-    return S, live.sum(dim=2, dtype=torch.int32)
+    return live.sum(dim=2, dtype=torch.int32)
+
+
+def coarse_scores_plain(lmflat: torch.Tensor, off: torch.Tensor,
+                        pos: torch.Tensor, rmin: torch.Tensor, M: int):
+    """Plain twin of ``coarse_scores``."""
+    S = coarse_maps_plain(lmflat, off, M)
+    return S, count_live(S, pos, rmin)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -41,39 +55,69 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def coarse_scores(lmflat: torch.Tensor, off: torch.Tensor,
-                  pos: torch.Tensor, rmin: torch.Tensor, M: int):
-    """lmflat [B, L + M] uint8 (linear memories + zero tail), off [K, N]
-    int32 flat offsets (L for dead slots), pos/rmin [K] int32 ->
-    (S [B, K, M] int32, cnt [B, K] int32)."""
+def _check_args(lmflat, off, M, pos=None, rmin=None) -> None:
     if lmflat.dim() != 2:
         raise ValueError("lmflat must be [B, L + M]")
     B, Lf = lmflat.shape
     K, N = off.shape
     _check(lmflat, "lmflat", torch.uint8, (B, Lf))
-    for t, name, shape in ((off, "off", (K, N)), (pos, "pos", (K,)),
-                           (rmin, "rmin", (K,))):
+    args = ((off, "off", (K, N)),)
+    if pos is not None:
+        args += ((pos, "pos", (K,)), (rmin, "rmin", (K,)))
+    for t, name, shape in args:
         _check(t, name, torch.int32, shape)
         if t.device != lmflat.device:
             raise ValueError(f"{name} is on {t.device}, lmflat on "
                              f"{lmflat.device}")
-    if lmflat.device.type == "cpu":
-        return coarse_scores_plain(lmflat, off, pos, rmin, M)
-    if lmflat.device.type != "cuda":
+    if lmflat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {lmflat.device}")
     if not 0 < M <= Lf:
         raise ValueError(f"M={M} does not fit lmflat of length {Lf}")
+
+
+def _launch(lmflat, off, M, pos=None, rmin=None):
+    """Launch coarse.cu on checked CUDA tensors; the count is off when
+    pos is None. Returns (S, cnt or None)."""
+    B, Lf = lmflat.shape
+    K, N = off.shape
     S = torch.empty((B, K, M), dtype=torch.int32, device=lmflat.device)
-    cnt = torch.zeros((B, K), dtype=torch.int32, device=lmflat.device)
+    cnt = None if pos is None else torch.zeros(
+        (B, K), dtype=torch.int32, device=lmflat.device)
     if B == 0 or K == 0:
         return S, cnt
     lib = build.library()
     build.check(lib.sbm_coarse_scores(
-        lmflat.data_ptr(), Lf, off.data_ptr(), pos.data_ptr(),
-        rmin.data_ptr(), S.data_ptr(), cnt.data_ptr(), B, K, N, M,
+        lmflat.data_ptr(), Lf, off.data_ptr(),
+        None if pos is None else pos.data_ptr(),
+        None if rmin is None else rmin.data_ptr(), S.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), B, K, N, M,
         build.stream_ptr(lmflat.device)), "sbm_coarse_scores")
+    return S, cnt
+
+
+def coarse_scores(lmflat: torch.Tensor, off: torch.Tensor,
+                  pos: torch.Tensor, rmin: torch.Tensor, M: int):
+    """lmflat [B, L + M] uint8 (linear memories + zero tail), off [K, N]
+    int32 flat offsets (L for dead slots), pos/rmin [K] int32 ->
+    (S [B, K, M] int32, cnt [B, K] int32)."""
+    _check_args(lmflat, off, M, pos, rmin)
+    if lmflat.device.type == "cpu":
+        return coarse_scores_plain(lmflat, off, pos, rmin, M)
+    S, cnt = _launch(lmflat, off, M, pos, rmin)
     coarse_scores.launches += 1
     return S, cnt
 
 
+def coarse_maps(lmflat: torch.Tensor, off: torch.Tensor, M: int):
+    """lmflat [B, L + M] uint8, off [K, N] int32 -> the unmasked maps
+    S [B, K, M] int32 (coarse.cu with the count off)."""
+    _check_args(lmflat, off, M)
+    if lmflat.device.type == "cpu":
+        return coarse_maps_plain(lmflat, off, M)
+    S, _ = _launch(lmflat, off, M)
+    coarse_maps.launches += 1
+    return S
+
+
 coarse_scores.launches = 0
+coarse_maps.launches = 0

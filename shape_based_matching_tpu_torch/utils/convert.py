@@ -38,3 +38,12 @@ def pyramids_to_banks(pyramids, levels: int, device="cpu") -> list:
               "width": tp[l].width, "height": tp[l].height}
              for tp in pyramids], device=device))
     return banks
+
+
+def level_max_dims(pyramids, levels: int) -> list[tuple[int, int]]:
+    """(max width, max height) of a class's templates at each pyramid level,
+    read on the host when the bank is built, so the refine route's
+    pathological-bank test needs no device read."""
+    return [(max((tp[l].width for tp in pyramids), default=0),
+             max((tp[l].height for tp in pyramids), default=0))
+            for l in range(levels)]

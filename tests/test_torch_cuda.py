@@ -15,15 +15,22 @@ import pytest
 import torch
 
 from shape_based_matching_tpu_torch import Detector
+from shape_based_matching_tpu_torch.ops.chain_plan import plan_chain
+from shape_based_matching_tpu_torch.ops.cuda.chain import (
+    chain_scores, chain_scores_plain, plan_to_device)
 from shape_based_matching_tpu_torch.ops.cuda.coarse import (
-    coarse_scores, coarse_scores_plain)
+    coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
 from shape_based_matching_tpu_torch.ops.cuda.frontend import (
     quant_spread, quant_spread_plain)
+from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+    map_refine, map_refine_plain)
 from shape_based_matching_tpu_torch.ops.cuda.refine import (
     refine_windows, refine_windows_plain)
 from shape_based_matching_tpu_torch.ops.similarity import (
-    _flat_offsets, _positions, _rmin_for_threshold, pack_level_bank)
+    LevelBank, _flat_offsets, _positions, _rmin_for_threshold, gather_bank,
+    pack_level_bank)
 from shape_based_matching_tpu_torch.utils import synthetic
+from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +113,94 @@ def test_refine_kernel_equals_plain(dev, T, size):
     got = refine_windows(*args)
     torch.cuda.synchronize()
     for g, e in zip(got, refine_windows_plain(*args)):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("size", [512, 1024])
+@pytest.mark.parametrize("threshold", [85.0, -5.0])
+def test_chain_kernel_equals_plain(dev, size, threshold):
+    """The committed 10,000-template bank's coarse level (T=8) at 256^2
+    and 512^2, on two random frames, against the twin that executes the
+    plan and against coarse.cu from scratch."""
+    pyr = synthetic.load_bank_cache(synthetic.bank_cache_path(10000, 63))
+    bank = pyramids_to_banks(pyr, 2)[-1]
+    size_wh = (size // 2, size // 2)
+    plan = plan_chain(LevelBank(*(f.numpy() for f in bank)), 8, size_wh)
+    assert plan is not None
+    plan = plan_to_device(plan, dev)
+    bank = LevelBank(*(f.to(dev) for f in bank))
+    rng = np.random.RandomState(size)
+    lmflat = _lmflat(rng, 2, 8, *size_wh, dev)
+    W, H = size_wh[0] // 8, size_wh[1] // 8
+    pos = _positions(bank, 8, W, H)
+    rmin, _ = _rmin_for_threshold(bank.nfeat,
+                                  torch.tensor(threshold, device=dev))
+    got = chain_scores(lmflat, plan, pos, rmin)
+    torch.cuda.synchronize()
+    for want in (chain_scores_plain(lmflat, plan, pos, rmin),
+                 coarse_scores(lmflat, _flat_offsets(bank, 8, W, W * H,
+                                                     size_wh),
+                               pos, rmin, W * H)):
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("T,w,h,K,n_max", [
+    (4, 256, 256, 64, 64), (4, 96, 64, 37, 70), (8, 128, 72, 37, 70),
+    (4, 64, 64, 5, 3000),
+])
+def test_coarse_maps_kernel_equals_plain(dev, T, w, h, K, n_max):
+    rng = np.random.RandomState(T * w + K + 1)
+    bank = _bank(rng, K, n_max, 48, dev)
+    lmflat = _lmflat(rng, 2, T, w, h, dev)
+    W = w // T
+    off = _flat_offsets(bank, T, W, W * (h // T), (w, h))
+    got = coarse_maps(lmflat, off, W * (h // T))
+    torch.cuda.synchronize()
+    assert torch.equal(got, coarse_maps_plain(lmflat, off, W * (h // T)))
+
+
+def test_coarse_maps_kernel_equals_plain_dense_bank(dev):
+    """The dense path's shapes: level-0 maps (T=4, 1024^2, so M=65536) of
+    D=1024 slots of the committed 10,000-template bank (N=63), 1000
+    distinct templates and 24 fill slots, as gather_bank gives them."""
+    pyr = synthetic.load_bank_cache(synthetic.bank_cache_path(10000, 63))
+    bank = LevelBank(*(f.to(dev) for f in pyramids_to_banks(pyr, 2)[0]))
+    rng = np.random.RandomState(10000)
+    ids = np.sort(rng.choice(10000, 1000, replace=False))
+    slots = torch.from_numpy(np.concatenate([ids, np.full(24, 10000)])
+                             .astype(np.int32)).to(dev)
+    sub = gather_bank(bank, slots)
+    lmflat = _lmflat(rng, 2, 4, 1024, 1024, dev)
+    W, M = 256, 256 * 256
+    off = _flat_offsets(sub, 4, W, M, (1024, 1024))
+    assert off.shape == (1024, 63)
+    got = coarse_maps(lmflat, off, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got, coarse_maps_plain(lmflat, off, M))
+
+
+@pytest.mark.parametrize("D,M,W,C", [
+    (24, 1024, 32, 300), (1, 256, 16, 300),
+    (1024, 65536, 256, 4096),  # the dense path's re-run at cap 4096
+])
+def test_map_refine_kernel_equals_plain(dev, D, M, W, C):
+    """Random maps and windows, some reaching past the last map (clipped)
+    or starting before the first; slot -1 and live False do no work."""
+    rng = np.random.RandomState(D + M)
+    B = 2
+    Sfull = torch.from_numpy(rng.randint(-3, 40, (B, D, M))
+                             .astype(np.int32)).to(dev)
+
+    def ints(lo, hi):
+        return torch.from_numpy(rng.randint(lo, hi, (B, C))
+                                .astype(np.int32)).to(dev)
+
+    slot, wx, wy = ints(-1, D), ints(-2, W), ints(-2, M // W)
+    live = torch.from_numpy(rng.rand(B, C) > 0.3).to(dev)
+    got = map_refine(Sfull, W, slot, wx, wy, live)
+    torch.cuda.synchronize()
+    for g, e in zip(got, map_refine_plain(Sfull, W, slot, wx, wy, live)):
         assert torch.equal(g, e)
 
 

@@ -3,9 +3,10 @@
 Port ``Detector(device="cpu")`` (every kernel wrapper runs its plain twin
 on CPU tensors) against the JAX ``Detector(use_pallas=False)`` on the same
 template pyramids and frames: match lists compare as (template_id, x, y,
-similarity float32 bits), exactly. The full-size check holds the port to
-the committed golden of the flagship configuration (1024x1024 frame,
-1000-template x 63-feature bank), generated by
+similarity float32 bits), exactly. The full-size checks hold the port to
+the committed goldens of the flagship configuration (1024x1024 frame,
+1000-template x 63-feature bank) and of the dense 10,000-template bank
+(delta-chain coarse scoring, map-route re-run), generated by
 tools/gen_torch_port_golden.py.
 """
 
@@ -22,8 +23,7 @@ from shape_based_matching_tpu_torch.models.detector import _batch_pyramid
 from shape_based_matching_tpu_torch.ops.similarity import coarse_extract
 from shape_based_matching_tpu_torch.utils import synthetic as tsyn
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
-                      "torch_port_e2e1000_matches.json")
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 
 def _keys(matches):
@@ -100,11 +100,48 @@ def test_synthetic_and_bank_cache_equal_jax():
                 [(f.x, f.y, f.label) for f in w.features]
 
 
-def test_full_size_matches_committed_golden():
-    """The flagship frame through the port's CPU path equals the JAX
-    golden, overflow re-run included (this frame has more coarse
-    candidates than the default cap of 256)."""
-    with open(GOLDEN) as f:
+@pytest.fixture(scope="module")
+def dense():
+    """The dense fixture of tests/test_chain.py (1500 rotations in 0.24
+    degree steps), a 256^2 scene, and a port Detector on the same
+    pyramids."""
+    jdet, templ = jsyn.build_rotated_detector(num_templates=1500,
+                                              num_features=63, size=96)
+    jdet.use_pallas = False
+    scene = jsyn.synthetic_scene(256, 256, templ, n_instances=2, seed=11)
+    det = Detector(num_features=63, T=(4, 8), device="cpu")
+    det.class_templates["bench"] = jdet.class_templates["bench"]
+    return jdet, det, scene
+
+
+@pytest.mark.parametrize("threshold", [80.0, 65.0])
+def test_dense_bank_chain_and_map_route_equal_jax(dense, threshold):
+    """The dense bank chains at the coarse level, and this frame has more
+    coarse candidates than the cap of 256 (1486 at 80), so its re-run at
+    a cap of 1024 or more refines through the map route."""
+    jdet, det, scene = dense
+    det.refine_routes.clear()
+    got = det.match(scene, threshold)
+    assert det._get_chain("bench", (128, 128)) is not None
+    assert det.refine_routes == {"window": 1, "maps": 1}
+    assert len(got) > 0
+    assert _keys(got) == _keys(jdet.match(scene, threshold))
+
+
+def test_forced_overflow_takes_map_route(dense):
+    """cand_cap=4 on two frames: both overflow, each re-runs through the
+    map route, and the lists still equal JAX's."""
+    jdet, det, scene = dense
+    frames = np.stack([scene, np.ascontiguousarray(scene[::-1])])
+    det.refine_routes.clear()
+    got = det.match_batch(frames, 80.0, cand_cap=4)
+    assert det.refine_routes == {"window": 1, "maps": 2}
+    assert [_keys(g) for g in got] == [_keys(w) for w in
+                                       jdet.match_batch(frames, 80.0)]
+
+
+def _golden_match(name):
+    with open(os.path.join(GOLDENS, f"torch_port_{name}_matches.json")) as f:
         golden = json.load(f)
     cfg = golden["config"]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,6 +153,24 @@ def test_full_size_matches_committed_golden():
                                  tsyn.synthetic_shape_image(256, 0),
                                  n_instances=cfg["n_instances"],
                                  seed=cfg["scene_seed"])
-    got = det.match(scene, cfg["threshold"])
-    assert [list(k) for k in _keys(got)] == golden["matches"]
+    return det, det.match(scene, cfg["threshold"]), golden["matches"]
+
+
+def test_full_size_dense_bank_matches_committed_golden():
+    """The 10,000-template bank on the flagship frame: the chain scores
+    the coarse level, 3668 coarse candidates overflow the cap of 256, and
+    the re-run at 4096 refines through the map route."""
+    det, got, want = _golden_match("e2e10000")
+    assert det._get_chain("bench", (512, 512)) is not None
+    assert det.refine_routes == {"window": 1, "maps": 1}
+    assert [list(k) for k in _keys(got)] == want
+    assert len(got) > 0
+
+
+def test_full_size_matches_committed_golden():
+    """The flagship frame through the port's CPU path equals the JAX
+    golden, overflow re-run included (this frame has more coarse
+    candidates than the default cap of 256)."""
+    _, got, want = _golden_match("e2e1000")
+    assert [list(k) for k in _keys(got)] == want
     assert len(got) > 0

@@ -12,8 +12,11 @@ import torch
 
 from shape_based_matching_tpu_torch import Detector
 from shape_based_matching_tpu_torch.ops.cuda import build
-from shape_based_matching_tpu_torch.ops.cuda.coarse import coarse_scores
+from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+    coarse_maps, coarse_scores)
 from shape_based_matching_tpu_torch.ops.cuda.frontend import quant_spread
+from shape_based_matching_tpu_torch.ops.cuda.map_refine import map_refine
 from shape_based_matching_tpu_torch.ops.cuda.refine import refine_windows
 from shape_based_matching_tpu_torch.utils import synthetic
 
@@ -43,7 +46,8 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    kernels = (quant_spread, coarse_scores, refine_windows)
+    kernels = (quant_spread, coarse_scores, refine_windows, chain_scores,
+               coarse_maps, map_refine)
     before = [fn.launches for fn in kernels]
     det = Detector(num_features=63, T=(4, 8), device="cpu")
     det.class_templates["c"] = synthetic.load_bank_cache(
@@ -84,4 +88,5 @@ def test_library_name_follows_sources():
     assert path.startswith(build.BUILD_DIR)
     assert path == build.library_path()
     assert sorted(os.path.basename(s) for s in build._sources()) == [
-        "coarse.cu", "frontend.cu", "refine.cu"]
+        "argmax.cuh", "chain.cu", "coarse.cu", "frontend.cu",
+        "map_refine.cu", "refine.cu"]

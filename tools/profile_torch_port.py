@@ -1,18 +1,20 @@
 """Where the PyTorch port's match time goes on one NVIDIA GPU.
 
-Runs the flagship configuration (1024x1024 synthetic scene, the committed
-1000-template x 63-feature bank, T=(4, 8), threshold 85) through
-``Detector(device="cuda")`` and reports
+Runs the flagship frame (1024x1024 synthetic scene, T=(4, 8), threshold
+85) with a committed 63-feature rotation bank -- 1000 templates by
+default, or the dense 10,000-template bank whose coarse level takes the
+delta chain -- through ``Detector(device="cuda")`` and reports
 
 * a stage breakdown of one ``match`` call on the host clock, with a
-  synchronize after each stage (upload, pyramid, class step, download,
-  overflow re-run, match list);
+  synchronize after each stage (upload, pyramid, class step at cap 256
+  with its download, overflow re-run, match list);
 * a torch.profiler trace of warm ``match`` calls: device time by kernel
   and the device's busy share of the wall time.
 
     python tools/profile_torch_port.py [--iters 20] [--batch 1]
+                                       [--templates 1000|10000]
 
-Writes the tables to chiprun_out/profile_torch_port.txt.
+Writes the tables to chiprun_out/profile_torch_port_t<templates>_b<batch>.txt.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--templates", type=int, default=1000,
+                    choices=(1000, 10000))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: CUDA is not available")
@@ -60,7 +64,7 @@ def main() -> None:
                          text=True, timeout=60).stdout.strip()
     det = Detector(num_features=63, T=(4, 8), device="cuda")
     det.class_templates["bench"] = s.load_bank_cache(
-        s.bank_cache_path(1000, 63))
+        s.bank_cache_path(args.templates, 63))
     templ = s.synthetic_shape_image(256, 0)
     frames = np.stack([s.synthetic_scene(1024, 1024, templ, n_instances=4,
                                          seed=3 + i)
@@ -85,26 +89,24 @@ def main() -> None:
                                det.weak_threshold)
         t = lap("pyramid", t)
         thr = torch.tensor(thr_v, dtype=torch.float32, device=det.device)
-        banks = det._get_banks("bench")
         sizes = tuple(det._level_sizes(x.shape[1:3]))
-        step = (banks, thr, det.T_at_level, det.pyramid_levels, sizes)
-        res = D._match_batch_class(lms, *step, 256)
+        host = det._class_step(lms, "bench", thr, sizes, 256)
         t = lap("class step (cap 256)", t)
-        host = D._to_host(res)
-        t = lap("download", t)
         rows = []
         for b in range(args.batch):
             row = host[b]
             if row[-1] > 256:
                 cap = next(c for c in D._CAND_BUCKETS if c >= row[-1])
-                row = D._to_host(D._match_batch_class(
-                    tuple(f[b:b + 1] for f in lms), *step, cap))[0]
+                row = det._class_step(tuple(f[b:b + 1] for f in lms),
+                                      "bench", thr, sizes, cap,
+                                      rerun=True)[0]
             rows.append(row)
         t = lap("overflow re-run", t)
         [D._sort_dedup(det._matches(r, "bench")) for r in rows]
         lap("match list", t)
 
-    lines = [f"card: {smi}; batch {args.batch}; {args.iters} iterations",
+    lines = [f"card: {smi}; {args.templates} templates; batch "
+             f"{args.batch}; {args.iters} iterations",
              "stage breakdown (host clock, synchronize after each stage), "
              "median ms:"]
     total = 0.0
@@ -141,8 +143,8 @@ def main() -> None:
     print(text)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"profile_torch_port_b{args.batch}.txt"),
-              "w") as f:
+    name = f"profile_torch_port_t{args.templates}_b{args.batch}.txt"
+    with open(os.path.join(out, name), "w") as f:
         f.write(text + "\n\n" + evts.table(row_limit=60) + "\n")
 
 
