@@ -27,7 +27,27 @@ Phases, each reported on its own line:
    chain, level-map and map-window kernels; timings of each new kernel
    against its twin, the chain against coarse.cu, the window route
    against the map route at caps 1024, 4096 and 16384, and end to end at
-   B=1.
+   B=1;
+7. the input modes: the frontend kernel against its twin, bitwise, at
+   1024x1024 (the flagship frame and noise, T=4 and T=8) in six modes --
+   color 8-orientation, gray 16, color 16, masked gray 8, masked color
+   16, with the quantized plane -- then seven paths, each a
+   ``Detector(device="cuda").match``: a masked frame, 16 orientations on
+   a gray frame, the wide banks 1000 x 128, 1000 x 256 (dense) and
+   8 x 8191 (dense), 16 orientations on the compiled C++ experiment's BGR
+   frame, and 8 orientations on a BGR frame. On each path its kernels
+   (frontend at both levels, coarse.cu -- the wide route's counterpart at
+   1000 x 142 and 8 x 3073 coarse slots --, window refine) are held
+   against their twins bitwise; the match list must equal its JAX golden
+   (the C++ golden under the contract of tests/test_golden_16ori.py for
+   the experiment's frame), the counters of its kernels must rise, and
+   the match is timed (mean of 10 warm calls between CUDA events).
+
+Every kernel record carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and the operations it does over 67e12 per second
+(the H100's float32 rate outside the tensor cores, used for every scalar
+integer and float operation, so the bound is a floor), computed from this
+run's inputs.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -80,15 +100,94 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _i64(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.uint16:  # few operators take uint16 on the card
+        return t.view(torch.int16).to(torch.int64) & 0xFFFF
+    return t.to(torch.int64)
+
+
 def _max_abs_err(pairs) -> int:
     err = 0
     for a, b in pairs:
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype {a.shape} {a.dtype} vs "
                                  f"{b.shape} {b.dtype}")
-        err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
-                           .abs().max().item()) if a.numel() else 0)
+        err = max(err, int((_i64(a) - _i64(b)).abs().max().item())
+                  if a.numel() else 0)
     return err
+
+
+PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
+PEAK_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time for `nbytes` of traffic and
+    `ops` scalar operations on the card."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _frontend_work(B, H, W, channels, n_ori, T, masked, with_quant):
+    """Bytes and operations of the fused frontend: each input pixel read
+    once (channels, mask), each output written once (1 or 2 bytes, twice
+    with the quantized plane). Per pixel and channel: the separable 7-tap
+    blur (26), Sobel (16), |grad|^2 (3), the channel pick (2 per extra
+    channel); then fastAtan2 (20), bucket (2), vote (9 adds and n_ori
+    compares), threshold and mask (2), separable T x T OR (2(T-1))."""
+    px = B * H * W
+    out_b = 1 if n_ori == 8 else 2
+    nbytes = px * (channels + int(masked) + out_b * (1 + int(with_quant)))
+    ops = px * (channels * 45 + 2 * (channels - 1) + 33 + n_ori
+                + 2 * (T - 1))
+    return nbytes, ops
+
+
+def _coarse_work(lmflat, off, M, counted):
+    """coarse.cu: lmflat read once, offsets, S (and pos, rmin, cnt)
+    written once; one add per in-image feature slot and cell (slots that
+    address the zero tail add nothing), two compares per cell counted."""
+    B, Lf = lmflat.shape
+    K = off.shape[0]
+    live = int((off < Lf - M).sum())
+    nbytes = B * Lf + off.numel() * 4 + B * K * M * 4
+    ops = B * live * M
+    if counted:
+        nbytes += K * 8 + B * K * 4
+        ops += 2 * B * K * M
+    return nbytes, ops
+
+
+def _refine_work(lmflat, bank, k, live):
+    """Window refine: the 256 window bytes of each live feature of each
+    live candidate (at most the whole lmflat), its slot (13 bytes) and the
+    candidate's arguments and results (21 bytes); 256 adds per live
+    feature and 256 compares per live candidate."""
+    B, Lf = lmflat.shape
+    feats = int(bank.valid[k][live].sum())
+    n = int(live.sum())
+    nbytes = min(B * Lf, feats * 256) + feats * 13 + k.numel() * 21
+    return nbytes, feats * 256 + n * 256
+
+
+def _map_refine_work(Sfull, live):
+    """Map window: 256 int32 map cells per live candidate (at most all
+    maps), 21 bytes of arguments and results per candidate; 256 compares
+    per live candidate."""
+    n = int(live.sum())
+    return min(Sfull.numel() * 4, n * 1024) + live.numel() * 21, n * 256
+
+
+def _chain_work(lmflat, plan, K, M):
+    """Chain: lmflat and the plan read once, S and cnt written once; one
+    add per slot visit and cell, two compares per cell counted."""
+    B, Lf = lmflat.shape
+    n_slots = plan.slots.numel()
+    nbytes = (B * Lf + (n_slots + plan.slot_start.numel()
+                        + plan.prog_start.numel()) * 4 + K * 8
+              + B * K * M * 4 + B * K * 4)
+    return nbytes, B * n_slots * M + 2 * B * K * M
 
 
 def _keys(matches):
@@ -179,12 +278,17 @@ def _print_routes(name: str, routes: list, card: str) -> None:
 
 
 def _record(fn, src: str, replaces: str, err: int, launches: dict,
-            path: str, ms: float, plain_ms: float) -> dict:
+            path: str, ms: float, plain_ms: float, work: tuple,
+            shape: str) -> dict:
+    """One kernel's JSON record. No single PyTorch call computes any of
+    the port's kernels' functions, so library_ms is null."""
+    bound_ms, bound_by = _bound(*work)
     return {"name": fn.__name__, "route": "cuda",
             "source": "shape_based_matching_tpu_torch/csrc/" + src,
             "replaces": "shape_based_matching_tpu/ops/pallas/" + replaces,
-            "path": path, "launches": launches[fn.__name__],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "path": path, "shape": shape, "launches": launches[fn.__name__],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def dense_phase(card: str) -> tuple[list, dict]:
@@ -286,22 +390,26 @@ def dense_phase(card: str) -> tuple[list, dict]:
         (chain_scores, "chain.cu", "similarity_pallas.py:572", chain_err,
          lambda: chain_scores(*chain_args),
          lambda: chain_scores_plain(*chain_args),
-         f"K={off1.shape[0]} M={M1}, {visits} slots"),
+         f"K={off1.shape[0]} M={M1}, {visits} slots",
+         _chain_work(lms[1], plan, off1.shape[0], M1)),
         (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
          mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
-         lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"]),
+         lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
+         _coarse_work(*mr["maps_args"], counted=False)),
         (map_refine, "map_refine.cu", "refine_pallas.py:121", mr["mr_err"],
          lambda: map_refine(*mr["mr_args"]),
-         lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"]),
+         lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
+         _map_refine_work(mr["mr_args"][0], mr["mr_args"][5])),
     )
     records = []
-    for fn, src, replaces, err, kern, plain, shape in table:
+    for fn, src, replaces, err, kern, plain, shape, work in table:
         ms = _time_ms(kern, iters)
         plain_ms = _time_ms(plain, max(iters // 5, 2))
-        print(f"time dense {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms on {card}")
         records.append(_record(fn, src, replaces, err, launches, "dense",
-                               ms, plain_ms))
+                               ms, plain_ms, work, shape))
+        print(f"time dense {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f}"
+              f" ms ({records[-1]['bound_by']}) on {card}")
     scratch_ms = _time_ms(lambda: coarse_scores(lms[1], off1, pos, rmin, M1),
                           iters)
     routes = [_route_ms(lms, banks, sizes, thr, c, plan, iters)
@@ -319,6 +427,272 @@ def dense_phase(card: str) -> tuple[list, dict]:
               "e2e_b1_ms": e2e_ms, "n_above": mr["n_above"],
               "n_distinct": mr["n_distinct"], "D": mr["D"]}
     return records, report
+
+
+# frontend modes held against the twin: (color, n_ori, masked, with_quant)
+K1_MODES = {
+    "color8": (True, 8, False, False),
+    "gray16": (False, 16, False, False),
+    "color16": (True, 16, False, False),
+    "masked_gray8": (False, 8, True, False),
+    "masked_color16": (True, 16, True, False),
+    "with_quant": (False, 8, False, True),
+}
+# the paths of phase 7, in order: golden name (tests/goldens/
+# torch_port_<name>_matches.json), or "case16" for the compiled C++
+# experiment's frame and match list
+MODE_PATHS = ("masked360", "e2e360_16ori", "wide1000x128", "wide1000x256",
+              "wide8191", "case16", "color1000")
+
+
+def _bgr(f: np.ndarray) -> np.ndarray:
+    return np.stack([f, np.roll(f, 1, axis=-1), 255 - f], axis=-1)
+
+
+def _upload(frame: np.ndarray, mask, dev):
+    """One [H, W] or BGR [H, W, 3] frame (and [H, W] mask) as the
+    detector holds it: [1, H, W] or planar [1, 3, H, W] uint8 on `dev`."""
+    t = torch.from_numpy(np.ascontiguousarray(frame[None])).to(dev)
+    if t.dim() == 4:
+        t = t.permute(0, 3, 1, 2).contiguous()
+    return t, (None if mask is None
+               else torch.from_numpy(np.ascontiguousarray(mask[None]))
+               .to(dev))
+
+
+def k1_modes(scene: np.ndarray, weak: float, card: str) -> dict:
+    """Phase 7a: the frontend kernel against its twin in every mode, on the
+    flagship frame and noise at 1024^2, T=4 and T=8; each mode timed at
+    B=1, T=4."""
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread, quant_spread_plain)
+
+    dev = torch.device(DEVICE)
+    noise = np.random.RandomState(7).randint(0, 256, scene.shape,
+                                             dtype=np.uint8)
+    gray = np.stack([scene, noise])
+    masks = torch.from_numpy(np.stack([
+        (np.random.RandomState(s).rand(*scene.shape) > 0.25).astype(
+            np.uint8) * 255 for s in (4, 5)])).to(dev)
+    out = {}
+    for mode, (color, n_ori, masked, wq) in K1_MODES.items():
+        frames = torch.from_numpy(_bgr(gray) if color else gray).to(dev)
+        if color:
+            frames = frames.permute(0, 3, 1, 2).contiguous()
+        m = masks if masked else None
+        err = 0
+        for T in (4, 8):
+            got = quant_spread(frames, weak, T, n_ori, m, wq)
+            want = quant_spread_plain(frames, weak, T, n_ori, m, wq)
+            err = max(err, _max_abs_err(zip(got if wq else (got,),
+                                            want if wq else (want,))))
+        one, m1 = frames[:1], (None if m is None else m[:1])
+        ms = _time_ms(lambda: quant_spread(one, weak, 4, n_ori, m1, wq), 30)
+        plain_ms = _time_ms(
+            lambda: quant_spread_plain(one, weak, 4, n_ori, m1, wq), 5)
+        bound_ms, bound_by = _bound(*_frontend_work(
+            1, *scene.shape, 3 if color else 1, n_ori, 4, masked, wq))
+        out[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K1 frontend {mode} vs plain: max_abs_err {err} (1024^2, "
+              f"scene + noise, T=4 and T=8); time at B=1 T=4: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}) on {card}")
+    if any(r["max_abs_err"] for r in out.values()):
+        raise AssertionError("a frontend mode disagrees with its twin")
+    return out
+
+
+def _case16_parity(ours, golden) -> None:
+    """tests/test_golden_16ori.py's contract: every C++ match is ours, and
+    every extra of ours shares a golden (x, y, similarity) -- the C++
+    dedup drops same-position matches of other templates at random."""
+    ours_set = {(m.x, m.y, m.template_id, round(m.similarity, 3))
+                for m in ours}
+    golden_set = {(m["x"], m["y"], m["template_id"],
+                   round(m["similarity"], 3)) for m in golden}
+    missing = golden_set - ours_set
+    golden_pos = {(g[0], g[1], g[3]) for g in golden_set}
+    bad = [e for e in ours_set - golden_set
+           if (e[0], e[1], e[3]) not in golden_pos]
+    if missing or bad:
+        raise AssertionError(f"case16 differs from the C++ golden: missing "
+                             f"{sorted(missing)[:5]}, unexplained extras "
+                             f"{bad[:5]}")
+
+
+def _mode_path(name: str):
+    """(Detector kwargs, class id, pyramids, frame, mask, threshold, check)
+    of a phase-7 path; check(matches) raises unless the list is right."""
+    from shape_based_matching_tpu_torch.models.template import (
+        Feature, Template)
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        config_frame, load_bank_cache)
+    from tests.golden_utils import load_json, load_mat
+
+    if name == "case16":
+        pyramids = [[Template(
+            width=t["width"], height=t["height"], tl_x=t["tl_x"],
+            tl_y=t["tl_y"], pyramid_level=t["pyramid_level"],
+            features=[Feature(x, y, lb) for x, y, lb in t["features"]])
+            for t in tp]
+            for tp in load_json("case16_train_templates.json")["templates"]]
+        want = load_json("case16_matches.json")["matches"]
+        kwargs = {"num_features": 63, "T": (4, 8), "weak_threshold": 10.0,
+                  "strong_threshold": 55.0, "num_orientations": 16}
+        return (kwargs, "test", pyramids, load_mat("case16_img.bin"), None,
+                30.0, lambda got: _case16_parity(got, want))
+    golden = json.load(open(os.path.join(
+        GOLDENS, f"torch_port_{name}_matches.json")))
+    cfg = golden["config"]
+    pyramids = load_bank_cache(os.path.join(ROOT, cfg["bank"]))
+    if pyramids is None or len(pyramids) != cfg["num_templates"]:
+        raise AssertionError(f"bank {cfg['bank']} missing or stale")
+    frame, mask = config_frame(cfg)
+    kwargs = {"num_features": cfg["num_features"], "T": tuple(cfg["T"]),
+              "num_orientations": cfg["num_orientations"]}
+
+    def check(got):
+        if _keys(got) != golden["matches"]:
+            raise AssertionError(f"{name}: B=1 differs from the JAX golden: "
+                                 f"{len(got)} vs {len(golden['matches'])} "
+                                 f"matches")
+
+    return (kwargs, golden["class_id"], pyramids, frame, mask,
+            cfg["threshold"], check)
+
+
+def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
+    """Phase 7b, one path: its kernels against their twins at the path's
+    shapes, the match through the kernels (counters, golden), timings.
+    Returns the path's kernel records and its report."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import (
+        _batch_pyramid)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows, refine_windows_plain)
+    from shape_based_matching_tpu_torch.ops.filters import (
+        pyr_down_u8, resize_nearest)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold, _window_origin,
+        coarse_extract)
+
+    kwargs, cid, pyramids, frame, mask, threshold, check = _mode_path(name)
+    dev = torch.device(DEVICE)
+    det = Detector(**kwargs, device=DEVICE)
+    det.class_templates[cid] = pyramids
+    banks = det._get_banks(cid)
+    n_ori, weak, T = det.num_orientations, det.weak_threshold, det.T_at_level
+    color, masked = frame.ndim == 3, mask is not None
+    mode = (f"{'masked ' if masked else ''}{'color' if color else 'gray'} "
+            f"{n_ori}-ori")
+    sizes = det._level_sizes(frame.shape[:2])
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    frames, masks = _upload(frame, mask, dev)
+    if det._get_chain(cid, sizes[-1]) is not None:
+        raise AssertionError(f"{name}: the planner took the chain, JAX "
+                             f"declines this bank")
+
+    # kernels against their twins at the path's shapes
+    half = pyr_down_u8(frames)
+    half_m = None if masks is None else resize_nearest(masks,
+                                                       half.shape[-2:])
+    k1_err = max(_max_abs_err([(quant_spread(f, weak, t, n_ori, m),
+                                quant_spread_plain(f, weak, t, n_ori, m))])
+                 for f, m, t in ((frames, masks, T[0]),
+                                 (half, half_m, T[1])))
+    lms = _batch_pyramid(frames, T, det.pyramid_levels, weak, n_ori, masks)
+    T1, (w1, h1) = T[1], sizes[1]
+    W1, H1 = w1 // T1, h1 // T1
+    M1 = W1 * H1
+    off = _flat_offsets(banks[1], T1, W1, M1, sizes[1], n_ori)
+    pos = _positions(banks[1], T1, W1, H1)
+    rmin, _ = _rmin_for_threshold(banks[1].nfeat, thr)
+    k2_args = (lms[1], off, pos, rmin, M1)
+    S, cnt = coarse_scores(*k2_args)
+    k2_err = _max_abs_err(zip((S, cnt), coarse_scores_plain(*k2_args)))
+    k, x, y, _, valid, n_above = coarse_extract(
+        lms[1], banks[1], T1, sizes[1], thr, 256, None, n_ori)
+    wx, wy = _window_origin(banks[0], T[0], sizes[0], k, x, y)
+    k3_args = (lms[0], banks[0], T[0], sizes[0], k, wx, wy, valid, n_ori)
+    k3_err = _max_abs_err(zip(refine_windows(*k3_args),
+                              refine_windows_plain(*k3_args[:-1])))
+    K, N = off.shape
+    N0 = banks[0].fx.shape[1]
+    print(f"{name}: K1 frontend ({mode}) vs plain max_abs_err {k1_err} at "
+          f"{frame.shape[1]}x{frame.shape[0]} and its half, T={T}; coarse "
+          f"K={K} N={N} M={M1} vs plain max_abs_err {k2_err} "
+          f"({int(cnt.sum())} above threshold); window refine N={N0} "
+          f"vs plain max_abs_err {k3_err} ({int(valid.sum())} live)")
+    if k1_err or k2_err or k3_err:
+        raise AssertionError(f"{name}: a kernel disagrees with its twin")
+
+    # the path through the kernels
+    kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
+               map_refine, chain_scores)
+    for fn in kernels:
+        fn.launches = 0
+    det.refine_routes.clear()
+    got = det.match(frame, threshold, mask=mask)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    routes = dict(det.refine_routes)
+    print(f"{name}: launches {launches}; refine routes {routes}; "
+          f"{len(got)} matches")
+    need = ["quant_spread", "coarse_scores", "refine_windows"]
+    if routes.get("maps"):
+        need += ["coarse_maps", "map_refine"]
+    if not all(launches[n] for n in need) or launches["chain_scores"]:
+        raise AssertionError(f"{name}: a kernel of the path was not "
+                             f"launched, or the chain was: {launches}")
+    check(got)
+    print(f"{name}: the match list equals its "
+          f"{'C++' if name == 'case16' else 'JAX'} golden ({len(got)} "
+          f"matches)")
+
+    # timings
+    e2e_ms = _time_ms(lambda: det.match(frame, threshold, mask=mask), 10)
+    table = (
+        (quant_spread, "frontend.cu", "frontend_pallas.py:108",
+         k1_err, lambda: quant_spread(frames, weak, T[0], n_ori, masks),
+         lambda: quant_spread_plain(frames, weak, T[0], n_ori, masks),
+         f"{mode} {frame.shape[1]}x{frame.shape[0]} T={T[0]}",
+         _frontend_work(1, *frame.shape[:2], 3 if color else 1, n_ori,
+                        T[0], masked, False)),
+        (coarse_scores, "coarse.cu",
+         "similarity_pallas.py:175" if N > 63 else "similarity_pallas.py:55",
+         k2_err, lambda: coarse_scores(*k2_args),
+         lambda: coarse_scores_plain(*k2_args), f"K={K} N={N} M={M1}",
+         _coarse_work(lms[1], off, M1, counted=True)),
+        (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
+         lambda: refine_windows(*k3_args),
+         lambda: refine_windows_plain(*k3_args[:-1]), f"C=256 N={N0}",
+         _refine_work(lms[0], banks[0], k, valid)),
+    )
+    records = []
+    for fn, src, replaces, err, kern, plain, shape, work in table:
+        ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        records.append(_record(fn, src, replaces, err, launches, name, ms,
+                               plain_ms, work, shape))
+        print(f"time {name} {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{records[-1]['bound_ms']:.4f} ms "
+              f"({records[-1]['bound_by']}) on {card}")
+    print(f"time e2e {name} B=1 ({mode}, {len(pyramids)} templates, "
+          f"{frame.shape[1]}x{frame.shape[0]}): {e2e_ms:.4f} ms/frame on "
+          f"{card}")
+    return records, {"launches": launches, "refine_routes": routes,
+                     "n_matches": len(got), "n_above": int(n_above[0]),
+                     "coarse_K": K, "coarse_N": N, "M": M1, "level0_N": N0,
+                     "e2e_b1_ms": e2e_ms}
 
 
 def main() -> None:
@@ -463,35 +837,41 @@ def main() -> None:
           f"(tid, x, y, f32 bits)); B=8 equals B=1 frame by frame")
 
     # 5. timings
-    iters = 50
+    iters = 30
     table = (
         (quant_spread, "frontend.cu", "frontend_pallas.py:108", k1_err,
          lambda: quant_spread(full[:1], det.weak_threshold, T0),
          lambda: quant_spread_plain(full[:1], det.weak_threshold, T0),
-         "1024^2 T=4"),
+         "1024^2 T=4", _frontend_work(1, 1024, 1024, 1, 8, T0, False,
+                                      False)),
         (coarse_scores, "coarse.cu", "similarity_pallas.py:55", k2_err,
          lambda: coarse_scores(*k2_args),
          lambda: coarse_scores_plain(*k2_args),
-         f"K={off.shape[0]} N={off.shape[1]} M={M1}"),
+         f"K={off.shape[0]} N={off.shape[1]} M={M1}",
+         _coarse_work(lms[1], off, M1, counted=True)),
         (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
          lambda: refine_windows(*k3_args),
          lambda: refine_windows_plain(*k3_args),
-         f"C=256 N={banks[0].fx.shape[1]}"),
+         f"C=256 N={banks[0].fx.shape[1]}",
+         _refine_work(lms[0], banks[0], k, valid)),
         (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
          mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
-         lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"]),
+         lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
+         _coarse_work(*mr["maps_args"], counted=False)),
         (map_refine, "map_refine.cu", "refine_pallas.py:121", mr["mr_err"],
          lambda: map_refine(*mr["mr_args"]),
-         lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"]),
+         lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
+         _map_refine_work(mr["mr_args"][0], mr["mr_args"][5])),
     )
     records = []
-    for fn, src, replaces, err, kern, plain, shape in table:
+    for fn, src, replaces, err, kern, plain, shape, work in table:
         ms = _time_ms(kern, iters)
         plain_ms = _time_ms(plain, iters // 5)
-        print(f"time {fn.__name__} [{shape}]: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms on {card}")
         records.append(_record(fn, src, replaces, err, launches, "flagship",
-                               ms, plain_ms))
+                               ms, plain_ms, work, shape))
+        print(f"time {fn.__name__} [{shape}]: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f} ms "
+              f"({records[-1]['bound_by']}) on {card}")
     routes = [_route_ms(lms, banks, sizes, thr, re_cap, None, iters)]
     _print_routes("flagship", routes, card)
     e2e_ms = _time_ms(lambda: det.match(scene, THRESHOLD), iters)
@@ -514,6 +894,13 @@ def main() -> None:
     # 6. the dense-bank path
     dense_records, report["dense"] = dense_phase(card)
     records += dense_records
+
+    # 7. the input modes
+    report["k1_modes"] = k1_modes(scene, det.weak_threshold, card)
+    report["paths"] = {}
+    for name in MODE_PATHS:
+        path_records, report["paths"][name] = mode_path_phase(name, card)
+        records += path_records
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -9,8 +9,11 @@
 // similarity_pallas.py::_make_rotate_kernel as run by _run_rotate_kernel:
 // counted from _coarse_words_pallas_counted (the packed4 route), and
 // uncounted from _coarse_words_pallas and _coarse_similarity_pallas (full
-// maps, mask_positions=False). Plain twins: ops/cuda/coarse.py::
-// coarse_scores_plain and coarse_maps_plain.
+// maps, mask_positions=False); and the wide kernel _make_wide_kernel as
+// run by _coarse_words_wide_counted (banks of 64 to 16383 slots, whose u8
+// phases the TPU widens into u16 halves): the function is the same S and
+// cnt, and the int32 sums here have no width limit. Plain twins:
+// ops/cuda/coarse.py::coarse_scores_plain and coarse_maps_plain.
 //
 // A feature's shift is an address add into the one contiguous lmflat
 // buffer (linear memories plus an M-byte zero tail), so the reference's
@@ -19,9 +22,12 @@
 // There is no byte packing and no feature-count limit: each thread sums
 // bytes in an int32 register.
 //
-// Bound on the card: K*N*M byte loads (about 5e8 at 1000 templates x 32
-// slots on a 128x128 coarse grid) served mostly from L1/L2, since one
-// frame's lmflat (8 MB at T=8 for 1024^2) fits the 50 MB L2. Design: a
+// Bound on the card: the store of S (K*M*4 bytes) at the flagship's
+// 1000 templates x 32 slots; K*N*M byte loads, served mostly from L1/L2
+// since one frame's lmflat (2 MB at T=8 for a 512^2 coarse level, 4 MB
+// with 16 orientations) fits the 50 MB L2, for wide banks. At 8 templates
+// x 3073 slots the grid is 8 x 4 blocks and each thread walks the slots
+// serially: latency, not bandwidth, sets the time there. Design: a
 // block owns one template and 1024 consecutive cells, stages the
 // template's offsets in shared memory, and each thread keeps 4 cells
 // 256 apart so every load instruction of a warp reads 32 consecutive

@@ -60,11 +60,11 @@ class ChainPlan(NamedTuple):
     slot_start: object  # [K + 1] int32: first slot of each template
     slots: object       # [NS] int32: off (added) or ~off (removed)
     M: int              # cells of the coarse level
-    L: int              # offset of the zero tail, 8*T*T*M
+    L: int              # offset of the zero tail, n_ori*T*T*M
 
 
 def _jax_engages(n_base, n_delta, is_delta, n_slots: int, W: int, M: int,
-                 T: int) -> bool:
+                 C: int) -> bool:
     """plan_chain's engage rule: JAX's packing gates and its padded slot
     cost against the plain kernel's live slots."""
     K = len(n_base)
@@ -77,7 +77,7 @@ def _jax_engages(n_base, n_delta, is_delta, n_slots: int, W: int, M: int,
     else:
         return False
     m_pad = -(-(M + max(W, 1)) // 4096) * 4096
-    if 4 * (8 * T * T + 1) * m_pad > _JAX_VMEM:
+    if 4 * (C + 1) * m_pad > _JAX_VMEM:
         return False
     steps = cur = 0
     for k in range(K):
@@ -93,15 +93,16 @@ def _jax_engages(n_base, n_delta, is_delta, n_slots: int, W: int, M: int,
     return plain > 0 and steps * _JAX_SUBSTEP <= max_ratio * plain
 
 
-def plan_chain(bank, T: int, size_wh) -> ChainPlan | None:
+def plan_chain(bank, T: int, size_wh, n_ori: int = 8) -> ChainPlan | None:
     """A chain plan for the coarse level of `bank` (fields fx, fy, label,
     valid, nfeat as numpy arrays; valid features first, as
-    ``pack_level_bank`` lays them out) at frame size ``(w, h)``, or None
-    when the bank does not profit."""
+    ``pack_level_bank`` lays them out) at frame size ``(w, h)`` with
+    `n_ori` orientation planes, or None when the bank does not profit."""
     w_img, h_img = int(size_wh[0]), int(size_wh[1])
     W, H = w_img // T, h_img // T
     M = W * H
-    L = 8 * T * T * M
+    C = n_ori * T * T  # planes of the linear memories
+    L = C * M
     fx, fy = np.asarray(bank.fx), np.asarray(bank.fy)
     lab, val = np.asarray(bank.label), np.asarray(bank.valid)
     K, n_slots = fx.shape
@@ -115,7 +116,7 @@ def plan_chain(bank, T: int, size_wh) -> ChainPlan | None:
     subs = [Counter()] + [feats[k - 1] - feats[k] for k in range(1, K)]
     n_delta = [sum(a.values()) + sum(s.values()) for a, s in zip(adds, subs)]
     is_delta = [k > 0 and n_delta[k] < nf[k] for k in range(K)]
-    if not _jax_engages(nf, n_delta, is_delta, n_slots, W, M, T):
+    if not _jax_engages(nf, n_delta, is_delta, n_slots, W, M, C):
         return None
 
     prog_start, slot_start, slots = [], [], []

@@ -47,8 +47,9 @@ _F = ctypes.c_float
 
 # C signatures: name -> argtypes (every entry returns the CUDA error code)
 SIGNATURES = {
-    # img, out, B, H, W, T, thr_sq, stream
-    "sbm_quant_spread": (_P, _P, _I, _I, _I, _I, _F, _P),
+    # img, mask, out, quant, B, H, W, T, n_ori, channels, thr_sq, stream
+    # (mask and quant may be null)
+    "sbm_quant_spread": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # lmflat, lm_stride, off, pos, rmin, S, cnt, B, K, N, M, stream
     # (pos, rmin and cnt null: the count is off)
     "sbm_coarse_scores": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -7,7 +7,9 @@
 ``coarse_maps(lmflat, off, M)`` is the same launch with the count off: the
 unmasked maps ``S`` alone. They replace the TPU kernel
 ``shape_based_matching_tpu/ops/pallas/similarity_pallas.py::
-_make_rotate_kernel`` in its counted and uncounted forms.
+_make_rotate_kernel`` in its counted and uncounted forms, and the wide
+kernel ``_make_wide_kernel`` (banks of 64 or more slots): the int32 sums
+have no feature limit, so one kernel serves every bank width.
 
 On a CPU tensor each wrapper runs its plain twin (``coarse_scores_plain``,
 ``coarse_maps_plain``); on a CUDA tensor it launches the kernel or raises.

@@ -1,10 +1,15 @@
-"""Kernel 1: the fused frontend, ``csrc/frontend.cu``.
+"""Kernels 1 and 2: the fused frontend, ``csrc/frontend.cu``.
 
-``quant_spread(imgs, weak_threshold, T)`` maps gray uint8 frames
-``[B, H, W]`` to their T x T-spread orientation planes ``[B, H, W]``
-uint8: blur, Sobel, fastAtan2, vote-quantize and spread in one launch.
-It replaces the TPU kernel
-``shape_based_matching_tpu/ops/pallas/frontend_pallas.py::_quant_spread_kernel``.
+``quant_spread(imgs, weak_threshold, T, n_ori, masks, with_quant)`` maps
+uint8 frames -- gray ``[B, H, W]`` or planar color ``[B, 3, H, W]`` --
+to their T x T-spread orientation planes ``[B, H, W]``, uint8 for 8
+orientations and uint16 for 16: blur, Sobel (color: the channel of
+largest |grad|^2), fastAtan2, vote-quantize, mask and spread in one
+launch. ``masks`` (``[B, H, W]`` uint8) zeroes the quantized code where it
+is 0, before the spread; ``with_quant`` also returns the pre-spread
+quantized plane. It replaces the TPU kernel
+``shape_based_matching_tpu/ops/pallas/frontend_pallas.py::_quant_spread_kernel``
+as run by ``_quant_spread_batched_impl`` and ``_quant_spread_impl``.
 
 On a CPU tensor the wrapper runs ``quant_spread_plain``; on a CUDA tensor
 it launches the kernel or raises.
@@ -14,44 +19,77 @@ from __future__ import annotations
 
 import torch
 
-from ..gradients import quantized_orientations_gray, weak_threshold_sq
-from ..response import spread
+from ..gradients import (quantized_orientations_color,
+                         quantized_orientations_gray, weak_threshold_sq)
+from ..response import from_i32, spread, to_i32
 from . import build
 
 T_MAX = 16  # the kernel's shared-memory halo is sized for T <= 16
 
 
-def quant_spread_plain(imgs: torch.Tensor, weak_threshold: float,
-                       T: int) -> torch.Tensor:
-    """Plain twin: spread(quantized_orientations_gray(...).angle, T)."""
-    return spread(quantized_orientations_gray(imgs, weak_threshold).angle, T)
+def quant_spread_plain(imgs: torch.Tensor, weak_threshold: float, T: int,
+                       n_ori: int = 8, masks: torch.Tensor | None = None,
+                       with_quant: bool = False):
+    """Plain twin: spread(quantized_orientations_{gray,color}(...).angle
+    masked where masks == 0, T)."""
+    quantize = (quantized_orientations_color if imgs.dim() == 4
+                else quantized_orientations_gray)
+    angle = quantize(imgs, weak_threshold, n_ori).angle
+    quant = to_i32(angle)
+    if masks is not None:
+        quant = torch.where(masks != 0, quant, 0)
+    sp = from_i32(spread(quant, T), angle.dtype)
+    return (sp, from_i32(quant, angle.dtype)) if with_quant else sp
 
 
-def quant_spread(imgs: torch.Tensor, weak_threshold: float,
-                 T: int) -> torch.Tensor:
-    """[B, H, W] uint8 frames -> [B, H, W] uint8 spread planes."""
-    if imgs.dim() != 3 or imgs.dtype != torch.uint8:
-        raise ValueError(f"expected [B, H, W] uint8, got {imgs.dtype} "
-                         f"{tuple(imgs.shape)}")
+def _check(imgs, masks, T, n_ori) -> None:
+    if imgs.dtype != torch.uint8 or imgs.dim() not in (3, 4) or (
+            imgs.dim() == 4 and imgs.shape[1] != 3):
+        raise ValueError(f"expected uint8 [B, H, W] or [B, 3, H, W], got "
+                         f"{imgs.dtype} {tuple(imgs.shape)}")
     if not 1 <= T <= T_MAX:
         raise ValueError(f"T={T} outside 1..{T_MAX}")
-    if imgs.device.type == "cpu":
-        return quant_spread_plain(imgs, weak_threshold, T)
-    if imgs.device.type != "cuda":
+    if n_ori not in (8, 16):
+        raise ValueError(f"n_ori={n_ori}: 8 or 16 orientations")
+    if masks is not None:
+        want = (imgs.shape[0], *imgs.shape[-2:])
+        if masks.dtype != torch.uint8 or tuple(masks.shape) != want:
+            raise ValueError(f"masks: expected uint8 {want}, got "
+                             f"{masks.dtype} {tuple(masks.shape)}")
+        if masks.device != imgs.device:
+            raise ValueError(f"masks are on {masks.device}, frames on "
+                             f"{imgs.device}")
+    if imgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {imgs.device}")
-    if not imgs.is_contiguous():
-        raise ValueError("frames must be contiguous")
-    B, H, W = imgs.shape
-    out = torch.empty_like(imgs)
-    if imgs.numel() == 0:
-        return out
-    lib = build.library()
-    build.check(lib.sbm_quant_spread(
-        imgs.data_ptr(), out.data_ptr(), B, H, W, T,
-        weak_threshold_sq(weak_threshold), build.stream_ptr(imgs.device)),
-        "sbm_quant_spread")
-    quant_spread.launches += 1
-    return out
+
+
+def quant_spread(imgs: torch.Tensor, weak_threshold: float, T: int,
+                 n_ori: int = 8, masks: torch.Tensor | None = None,
+                 with_quant: bool = False):
+    """uint8 [B, H, W] or [B, 3, H, W] frames -> [B, H, W] spread planes
+    (uint8 for 8 orientations, uint16 for 16), or (spread, quantized)
+    with `with_quant`."""
+    _check(imgs, masks, T, n_ori)
+    if imgs.device.type == "cpu":
+        return quant_spread_plain(imgs, weak_threshold, T, n_ori, masks,
+                                  with_quant)
+    if not imgs.is_contiguous() or (masks is not None
+                                    and not masks.is_contiguous()):
+        raise ValueError("frames and masks must be contiguous")
+    B, H, W = imgs.shape[0], imgs.shape[-2], imgs.shape[-1]
+    dtype = torch.uint8 if n_ori == 8 else torch.uint16
+    out = torch.empty((B, H, W), dtype=dtype, device=imgs.device)
+    quant = torch.empty_like(out) if with_quant else None
+    if out.numel():
+        lib = build.library()
+        build.check(lib.sbm_quant_spread(
+            imgs.data_ptr(), None if masks is None else masks.data_ptr(),
+            out.data_ptr(), None if quant is None else quant.data_ptr(),
+            B, H, W, T, n_ori, 3 if imgs.dim() == 4 else 1,
+            weak_threshold_sq(weak_threshold),
+            build.stream_ptr(imgs.device)), "sbm_quant_spread")
+        quant_spread.launches += 1
+    return (out, quant) if with_quant else out
 
 
 quant_spread.launches = 0

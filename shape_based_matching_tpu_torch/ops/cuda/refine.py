@@ -22,7 +22,8 @@ from . import build
 def refine_windows_plain(lmflat: torch.Tensor, bank, T: int, size_wh,
                          k: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
                          live: torch.Tensor):
-    """Plain twin: gather [B, C, N, 256] window bytes and sum over N."""
+    """Plain twin: gather [B, C, N, 256] window bytes (in candidate
+    chunks) and sum over N."""
     w_img, h_img = size_wh
     W = w_img // T
     M = W * (h_img // T)
@@ -36,12 +37,20 @@ def refine_windows_plain(lmflat: torch.Tensor, bank, T: int, size_wh,
     plane = bank.label[k] * (T * T) + (fy % T) * T + (fx % T)
     base = plane * M + torch.div(fy, T, rounding_mode="floor") * W \
         + torch.div(fx, T, rounding_mode="floor")
-    base = torch.where(inb, base, torch.full_like(base, Lf - M))
+    base = torch.where(inb, base, torch.full_like(base, Lf - M)).long()
     rr = torch.arange(16, device=lmflat.device)
     cell = (rr[:, None] * W + rr[None, :]).reshape(-1)
-    idx = (base[..., None].long() + cell).clamp_(max=Lf - 1)  # [B,C,N,256]
-    g = torch.gather(lmflat, 1, idx.reshape(B, -1)).view(idx.shape)
-    patch = g.to(torch.int32).sum(dim=2, dtype=torch.int32)      # [B,C,256]
+    # candidates in chunks, so a wide bank's [B, c, N, 256] gather stays
+    # near 2^24 indices
+    C, N = base.shape[1], base.shape[2]
+    step = max(1, (1 << 16) // max(B * N, 1))
+    parts = []
+    for c0 in range(0, C, step):
+        idx = (base[:, c0:c0 + step, :, None] + cell).clamp_(max=Lf - 1)
+        g = torch.gather(lmflat, 1, idx.reshape(B, -1)).view(idx.shape)
+        parts.append(g.to(torch.int32).sum(dim=2, dtype=torch.int32))
+    patch = torch.cat(parts, dim=1) if parts else torch.zeros(
+        (B, C, 256), dtype=torch.int32, device=lmflat.device)  # [B, C, 256]
     patch = torch.where(live[..., None], patch, torch.zeros_like(patch))
     raw, best = patch.max(dim=2)  # ties -> first index (strict > in C++)
     return best.to(torch.int32), raw.to(torch.int32)
@@ -49,8 +58,9 @@ def refine_windows_plain(lmflat: torch.Tensor, bank, T: int, size_wh,
 
 def refine_windows(lmflat: torch.Tensor, bank, T: int, size_wh,
                    k: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
-                   live: torch.Tensor):
-    """lmflat [B, L + M] uint8; bank a LevelBank on the same device;
+                   live: torch.Tensor, n_ori: int = 8):
+    """lmflat [B, L + M] uint8, L = n_ori*T*T*M; bank a LevelBank on the
+    same device;
     k, wx, wy [B, C] int32 (template, window origin on the T-grid);
     live [B, C] bool -> (best [B, C] int32, raw [B, C] int32)."""
     if lmflat.dim() != 2 or lmflat.dtype != torch.uint8:
@@ -80,9 +90,9 @@ def refine_windows(lmflat: torch.Tensor, bank, T: int, size_wh,
             raise ValueError(f"bank.{name} must be a contiguous [K, N] "
                              f"tensor on {lmflat.device}")
     w_img, h_img = size_wh
-    if Lf != (8 * T * T + 1) * (w_img // T) * (h_img // T):
+    if Lf != (n_ori * T * T + 1) * (w_img // T) * (h_img // T):
         raise ValueError(f"lmflat length {Lf} does not match {size_wh} at "
-                         f"T={T}")
+                         f"T={T}, {n_ori} orientations")
     k, wx, wy, live = (t.contiguous() for t in (k, wx, wy, live))
     C = k.shape[1]
     best = torch.empty((B, C), dtype=torch.int32, device=lmflat.device)

@@ -11,14 +11,17 @@ orientation quantization downstream matches the C++ reference
   times diff [-1,0,1], exact in int32.
 * ``pyr_down_u8``: cv::pyrDown, 5-tap [1,4,6,4,1] separable kernel,
   BORDER_REFLECT_101, ``(acc + 128) >> 8``, even pixels kept.
+* ``resize_nearest``: cv::resize(INTER_NEAREST) of masks down the pyramid.
 
 Every function works on the last two axes of a ``[..., H, W]`` tensor, so
-a batch of frames filters in one call. Borders are index gathers, which
-work for every dtype on every device.
+a batch of frames, or the channels of planar color frames ``[B, 3, H,
+W]``, filter in one call. Borders are index gathers, which work for every
+dtype on every device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 GAUSS7_Q8 = (8, 28, 56, 72, 56, 28, 8)
@@ -90,3 +93,20 @@ def pyr_down_u8(img: torch.Tensor) -> torch.Tensor:
     x = _pyr_rows(img.to(torch.int32), -1)
     x = _pyr_rows(x, -2)
     return ((x + 128) >> 8).to(torch.uint8)
+
+
+def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """cv::resize(..., INTER_NEAREST) on the last two axes (mask
+    downsampling in the pyramid, line2Dup.cpp:439): source index
+    min(floor(dst * (src_len / dst_len)), src_len - 1), the product taken
+    in float32 as the JAX package's ``resize_nearest`` takes it (an int32
+    iota times a weakly typed Python float)."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    h, w = img.shape[-2:]
+
+    def index(n_out: int, n_in: int) -> torch.Tensor:
+        scale = torch.tensor(np.float32(n_in / n_out), device=img.device)
+        i = torch.arange(n_out, dtype=torch.float32, device=img.device)
+        return torch.floor(i * scale).to(torch.int64).clamp_(max=n_in - 1)
+
+    return img.index_select(-2, index(oh, h)).index_select(-1, index(ow, w))

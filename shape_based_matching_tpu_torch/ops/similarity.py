@@ -44,7 +44,7 @@ class LevelBank(NamedTuple):
 
     fx: torch.Tensor      # [K, N] int32 feature x (template frame)
     fy: torch.Tensor      # [K, N] int32 feature y
-    label: torch.Tensor   # [K, N] int32 orientation bin 0..7
+    label: torch.Tensor   # [K, N] int32 orientation bin 0..n_ori-1
     valid: torch.Tensor   # [K, N] bool
     nfeat: torch.Tensor   # [K] int32 true feature count
     width: torch.Tensor   # [K] int32 cropped template width at this level
@@ -75,13 +75,13 @@ def pack_level_bank(templates, device="cpu") -> LevelBank:
     return LevelBank(*(a.to(device) for a in (fx, fy, lb, va, nf, w, h)))
 
 
-def _flat_offsets(bank: LevelBank, T: int, W: int, M: int,
-                  size_wh) -> torch.Tensor:
+def _flat_offsets(bank: LevelBank, T: int, W: int, M: int, size_wh,
+                  n_ori: int = 8) -> torch.Tensor:
     """[K, N] int32 flat offset of each feature; dead or off-image slots
-    address the zero tail L = 8*T*T*M (accessLinearMemory,
+    address the zero tail L = n_ori*T*T*M (accessLinearMemory,
     line2Dup.cpp:782-805)."""
     w_img, h_img = size_wh
-    L = 8 * T * T * M
+    L = n_ori * T * T * M
     inb = (bank.valid & (bank.fx >= 0) & (bank.fx < w_img)
            & (bank.fy >= 0) & (bank.fy < h_img))
     plane = bank.label * (T * T) + (bank.fy % T) * T + (bank.fx % T)
@@ -116,16 +116,16 @@ def _rmin_for_threshold(nfeat: torch.Tensor, threshold: torch.Tensor):
 
 
 def coarse_similarity(lmflat: torch.Tensor, bank: LevelBank, T: int,
-                      size_wh, mask_positions: bool = True):
+                      size_wh, mask_positions: bool = True, n_ori: int = 8):
     """Scores of all K templates over all M positions of one frame (kernel
     4, ``coarse_maps``).
 
-    lmflat: [8*T*T*M + M] uint8. Returns (S [K, M] int32, zeroed past
+    lmflat: [n_ori*T*T*M + M] uint8. Returns (S [K, M] int32, zeroed past
     `positions` when mask_positions, positions [K] int32)."""
     w_img, h_img = size_wh
     W, H = w_img // T, h_img // T
     M = W * H
-    off = _flat_offsets(bank, T, W, M, size_wh)
+    off = _flat_offsets(bank, T, W, M, size_wh, n_ori)
     positions = _positions(bank, T, W, H)
     S = coarse_maps(lmflat[None], off, M)[0]
     if mask_positions:
@@ -183,11 +183,13 @@ def extract_candidates_counted(S: torch.Tensor, cnt: torch.Tensor,
 
 def coarse_extract(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
                    threshold: torch.Tensor, cand_cap: int,
-                   chain: ChainPlan | None = None):
+                   chain: ChainPlan | None = None, n_ori: int = 8):
     """Coarse scoring (kernel 2, or kernel 7 when `chain`, the bank's
     plan at this frame size, is given) + counted candidate extraction for
-    B frames. lmflat [B, 8*T*T*M + M] uint8. Returns (k, x, y, score,
-    valid) each [B, cand_cap] and n_above [B]."""
+    B frames. lmflat [B, n_ori*T*T*M + M] uint8. Returns (k, x, y, score,
+    valid) each [B, cand_cap] and n_above [B]. Any feature count works:
+    the scores are int32 and ``_rmin_for_threshold`` is exact far past the
+    reference's 8191-feature cap."""
     w_img, h_img = size_wh
     W, H = w_img // T, h_img // T
     M = W * H
@@ -196,8 +198,9 @@ def coarse_extract(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
     if chain is not None:
         S, cnt = chain_scores(lmflat, chain, positions, rmin)
     else:
-        S, cnt = coarse_scores(lmflat, _flat_offsets(bank, T, W, M, size_wh),
-                               positions, rmin, M)
+        S, cnt = coarse_scores(
+            lmflat, _flat_offsets(bank, T, W, M, size_wh, n_ori), positions,
+            rmin, M)
     return extract_candidates_counted(S, cnt, positions, rmin, t4n, T, W,
                                       cand_cap)
 
@@ -232,14 +235,15 @@ def _window_result(bank: LevelBank, T: int, k, wx, wy, best, raw, valid,
 def refine_candidates(lmflat: torch.Tensor, bank: LevelBank, T: int,
                       size_wh, k: torch.Tensor, x: torch.Tensor,
                       y: torch.Tensor, valid: torch.Tensor,
-                      threshold: torch.Tensor):
+                      threshold: torch.Tensor, n_ori: int = 8):
     """One pyramid refinement step for all candidates of B frames
     (matchClass candidate loop, line2Dup.cpp:1221-1293): doubling, border
     clamp, 16x16 local similarity (kernel 3), first-max argmax, threshold.
     Invalid candidates do no work; their outputs are don't-care values
     with valid False. Returns (k, x, y, score, valid), each [B, C]."""
     wx, wy = _window_origin(bank, T, size_wh, k, x, y)
-    best, raw = refine_windows(lmflat, bank, T, size_wh, k, wx, wy, valid)
+    best, raw = refine_windows(lmflat, bank, T, size_wh, k, wx, wy, valid,
+                               n_ori)
     return _window_result(bank, T, k, wx, wy, best, raw, valid, threshold)
 
 
@@ -298,7 +302,8 @@ def refine_from_maps(Sfull: torch.Tensor, slot_of_k: torch.Tensor,
 
 def refine_by_maps(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
                    k: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                   valid: torch.Tensor, threshold: torch.Tensor):
+                   valid: torch.Tensor, threshold: torch.Tensor,
+                   n_ori: int = 8):
     """The map route of a refine step (``_refine_level`` of the JAX
     package's detector): the distinct candidate templates, with one host
     read of their count to pick the smallest D of (16, 64, 256, 1024, K)
@@ -311,6 +316,7 @@ def refine_by_maps(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
     n = int(n_distinct)
     D = next((d for d in _D_BUCKETS if n <= d < K), K)
     sub = gather_bank(bank, slots[:D])
-    Sfull = coarse_maps(lmflat, _flat_offsets(sub, T, W, M, size_wh), M)
+    Sfull = coarse_maps(lmflat, _flat_offsets(sub, T, W, M, size_wh, n_ori),
+                        M)
     return refine_from_maps(Sfull, slot_of_k, bank, T, size_wh, k, x, y,
                             valid, threshold)

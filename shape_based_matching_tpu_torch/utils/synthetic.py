@@ -53,13 +53,48 @@ def synthetic_scene(h: int, w: int, templ: np.ndarray, n_instances: int = 3,
     return scene
 
 
+def synthetic_block_noise_image(size: int = 512, block: int = 4,
+                                seed: int = 0) -> np.ndarray:
+    """Binary block noise: strong edges everywhere, the texture that fills
+    a template's feature budget (the dense banks' training image and the
+    frames they are matched on)."""
+    rng = np.random.RandomState(seed)
+    blocks = rng.rand(size // block, size // block) > 0.5
+    img = np.kron(blocks, np.ones((block, block), bool))
+    return np.where(img, 220, 30).astype(np.uint8)
+
+
+def config_frame(cfg: dict) -> tuple:
+    """The frame ([H, W] gray or [H, W, 3] BGR uint8) and mask ([H, W]
+    uint8 or None) of a golden configuration (the ``config`` of
+    ``tests/goldens/torch_port_*_matches.json``): a ``synthetic_scene`` of
+    the star shape or of block noise, made BGR as (f, roll(f, 1, axis=1),
+    255 - f) when ``color``, masked by ``RandomState(mask_seed).rand(h, w)
+    > 0.25`` when ``mask_seed`` is set."""
+    t = cfg.get("template", {"kind": "shape", "size": 256})
+    templ = (synthetic_block_noise_image(t["size"], seed=0)
+             if t["kind"] == "block_noise"
+             else synthetic_shape_image(t["size"], 0))
+    h, w = cfg["height"], cfg["width"]
+    f = synthetic_scene(h, w, templ, n_instances=cfg["n_instances"],
+                        seed=cfg["scene_seed"])
+    if cfg.get("color"):
+        f = np.stack([f, np.roll(f, 1, axis=1), 255 - f], axis=-1)
+    mask = None
+    if cfg.get("mask_seed") is not None:
+        rng = np.random.RandomState(cfg["mask_seed"])
+        mask = (rng.rand(h, w) > 0.25).astype(np.uint8) * 255
+    return f, mask
+
+
 def bank_cache_path(num_templates: int, num_features: int, T=(4, 8),
-                    size: int = 256, seed: int = 0,
-                    dense: bool = False) -> str:
-    """Path of a committed 8-orientation rotation-bank snapshot."""
+                    size: int = 256, seed: int = 0, dense: bool = False,
+                    n_ori: int = 8) -> str:
+    """Path of a committed rotation-bank snapshot (8 or 16 orientations)."""
     t_tag = "-".join(str(t) for t in T)
     name = (f"rot{num_templates}x{num_features}_T{t_tag}_s{size}"
-            f"_seed{seed}{'_dense' if dense else ''}_v{_BANK_CACHE_V}.npz")
+            f"_seed{seed}{'_dense' if dense else ''}"
+            f"{'_ori16' if n_ori == 16 else ''}_v{_BANK_CACHE_V}.npz")
     return os.path.join(BANK_DIR, name)
 
 

@@ -94,6 +94,35 @@ def test_planner_decides_as_jax(dense, bank, size):
         assert len(plan.slots) < 0.6 * int(fields[4].sum())
 
 
+@pytest.mark.parametrize("args,n_ori", [
+    ((1000, 128), 8), ((1000, 256, (4, 8), 256, 0, True), 8),
+    ((8, 8191, (4, 8), 768, 0, True), 8),
+    ((360, 63, (4, 8), 256, 0, False, 16), 16),
+])
+def test_planner_decides_as_jax_on_mode_banks(args, n_ori):
+    """The wide and 16-orientation banks at a 1024^2 frame's coarse level
+    (T=8): the decision (decline, on all four) equals JAX's."""
+    pyr = tsyn.load_bank_cache(tsyn.bank_cache_path(*args))
+    fields = [f.numpy() for f in pyramids_to_banks(pyr, 2, n_ori=n_ori)[-1]]
+    want = jplan_chain(_np_bank(fields), T, (512, 512), n_ori) is not None
+    assert (plan_chain(_np_bank(fields), T, (512, 512), n_ori)
+            is not None) == want
+
+
+@pytest.mark.parametrize("n_ori", [8, 16])
+def test_planner_vmem_gate_follows_n_ori(dense, n_ori):
+    """At a 768^2 coarse level JAX's VMEM gate admits the 8-orientation
+    planes and refuses the 16-orientation ones: the port decides the same
+    for the same bank."""
+    fields = dense[0]
+    want = jplan_chain(_np_bank(fields), T, (768, 768), n_ori) is not None
+    assert want == (n_ori == 8)
+    plan = plan_chain(_np_bank(fields), T, (768, 768), n_ori)
+    assert (plan is not None) == want
+    if plan is not None:
+        assert plan.L == n_ori * T * T * plan.M
+
+
 def _scores_equal_plain(fields, size, lmflat, threshold):
     bank = level_bank_from_numpy(fields)
     plan = plan_chain(_np_bank(fields), T, size)

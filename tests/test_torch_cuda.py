@@ -26,6 +26,7 @@ from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
     map_refine, map_refine_plain)
 from shape_based_matching_tpu_torch.ops.cuda.refine import (
     refine_windows, refine_windows_plain)
+from shape_based_matching_tpu_torch.ops.response import to_i32
 from shape_based_matching_tpu_torch.ops.similarity import (
     LevelBank, _flat_offsets, _positions, _rmin_for_threshold, gather_bank,
     pack_level_bank)
@@ -74,6 +75,67 @@ def test_frontend_kernel_equals_plain(dev, h, w, T):
         got = quant_spread(frames, thr, T)
         torch.cuda.synchronize()
         assert torch.equal(got, quant_spread_plain(frames, thr, T))
+
+
+# mode: (color, n_ori, masked, with_quant)
+_MODES = {
+    "color8": (True, 8, False, False),
+    "gray16": (False, 16, False, False),
+    "color16": (True, 16, False, False),
+    "masked_gray8": (False, 8, True, False),
+    "masked_color16": (True, 16, True, False),
+    "with_quant": (False, 8, False, True),
+    "with_quant_masked_color16": (True, 16, True, True),
+}
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("h,w", [(37, 53), (256, 256)])
+@pytest.mark.parametrize("T", [1, 4, 8, 16])
+def test_frontend_kernel_modes_equal_plain(dev, mode, h, w, T):
+    """Color (planar; channels 0 and 2 tie in |grad|^2 everywhere), 16
+    orientations (uint16 planes), masks and the quantized plane."""
+    color, n_ori, masked, with_quant = _MODES[mode]
+    rng = np.random.RandomState(h + w + T)
+    gray = np.stack([rng.randint(0, 256, (h, w), dtype=np.uint8),
+                     synthetic.synthetic_scene(
+                         h, w, synthetic.synthetic_shape_image(24, T),
+                         n_instances=2, seed=T)])
+    img = (np.stack([gray, np.roll(gray, 1, axis=2), 255 - gray], axis=1)
+           if color else gray)
+    frames = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+    masks = torch.from_numpy(((rng.rand(2, h, w) > 0.25) * 255).astype(
+        np.uint8)).to(dev) if masked else None
+    got = quant_spread(frames, 30.0, T, n_ori, masks, with_quant)
+    torch.cuda.synchronize()
+    want = quant_spread_plain(frames, 30.0, T, n_ori, masks, with_quant)
+    for g, e in zip(got if with_quant else (got,),
+                    want if with_quant else (want,)):
+        assert g.dtype == e.dtype == (torch.uint8 if n_ori == 8
+                                      else torch.uint16)
+        assert torch.equal(to_i32(g), to_i32(e))
+
+
+@pytest.mark.parametrize("threshold", [88.0, 70.0, -5.0])
+def test_coarse_kernel_equals_plain_wide_8191_bank(dev, threshold):
+    """The committed 8 x 8191 dense bank's coarse level (N=3073 slots) at
+    a 1024^2 frame's coarse size (512^2, T=8): the shape of the wide TPU
+    kernel's route, scores and counts."""
+    pyr = synthetic.load_bank_cache(synthetic.bank_cache_path(
+        8, 8191, size=768, dense=True))
+    bank = LevelBank(*(f.to(dev) for f in pyramids_to_banks(pyr, 2)[-1]))
+    assert bank.fx.shape == (8, 3073)
+    rng = np.random.RandomState(8191)
+    lmflat = _lmflat(rng, 2, 8, 512, 512, dev)
+    W = H = 64
+    off = _flat_offsets(bank, 8, W, W * H, (512, 512))
+    pos = _positions(bank, 8, W, H)
+    rmin, _ = _rmin_for_threshold(bank.nfeat,
+                                  torch.tensor(threshold, device=dev))
+    got = coarse_scores(lmflat, off, pos, rmin, W * H)
+    torch.cuda.synchronize()
+    for g, e in zip(got, coarse_scores_plain(lmflat, off, pos, rmin, W * H)):
+        assert torch.equal(g, e)
 
 
 @pytest.mark.parametrize("T,w,h,K,n_max", [
@@ -202,6 +264,29 @@ def test_map_refine_kernel_equals_plain(dev, D, M, W, C):
     torch.cuda.synchronize()
     for g, e in zip(got, map_refine_plain(Sfull, W, slot, wx, wy, live)):
         assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("n_ori,color,masked", [
+    (8, True, True), (16, False, False), (16, True, True)])
+def test_detector_modes_cuda_equal_cpu(dev, n_ori, color, masked):
+    pyramids = synthetic.load_bank_cache(synthetic.bank_cache_path(
+        360, 63, n_ori=n_ori))
+    gray = np.stack([synthetic.synthetic_scene(
+        512, 512, synthetic.synthetic_shape_image(256, 0), n_instances=1,
+        seed=s) for s in (2, 3)])
+    frames = (np.stack([gray, np.roll(gray, 1, axis=2), 255 - gray],
+                       axis=-1) if color else gray)
+    masks = ((np.random.RandomState(4).rand(2, 512, 512) > 0.25) * 255
+             ).astype(np.uint8) if masked else None
+    out = []
+    for device in ("cpu", "cuda"):
+        det = Detector(num_features=63, T=(4, 8), num_orientations=n_ori,
+                       device=device)
+        det.class_templates["c"] = pyramids
+        out.append([[(m.template_id, m.x, m.y, m.similarity) for m in ms]
+                    for ms in det.match_batch(frames, 70.0, masks=masks)])
+    assert any(out[0])
+    assert out[0] == out[1]
 
 
 def test_detector_cuda_equals_cpu(dev):

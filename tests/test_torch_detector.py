@@ -5,8 +5,9 @@ on CPU tensors) against the JAX ``Detector(use_pallas=False)`` on the same
 template pyramids and frames: match lists compare as (template_id, x, y,
 similarity float32 bits), exactly. The full-size checks hold the port to
 the committed goldens of the flagship configuration (1024x1024 frame,
-1000-template x 63-feature bank) and of the dense 10,000-template bank
-(delta-chain coarse scoring, map-route re-run), generated by
+1000-template x 63-feature bank), of the dense 10,000-template bank
+(delta-chain coarse scoring, map-route re-run) and of the other input
+modes (mask, 16 orientations, BGR color, wide banks), generated by
 tools/gen_torch_port_golden.py.
 """
 
@@ -147,13 +148,23 @@ def _golden_match(name):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pyramids = tsyn.load_bank_cache(os.path.join(root, cfg["bank"]))
     det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
-                   device="cpu")
+                   num_orientations=cfg["num_orientations"], device="cpu")
     det.class_templates[golden["class_id"]] = pyramids
-    scene = tsyn.synthetic_scene(cfg["height"], cfg["width"],
-                                 tsyn.synthetic_shape_image(256, 0),
-                                 n_instances=cfg["n_instances"],
-                                 seed=cfg["scene_seed"])
-    return det, det.match(scene, cfg["threshold"]), golden["matches"]
+    frame, mask = tsyn.config_frame(cfg)
+    return det, det.match(frame, cfg["threshold"], mask=mask), \
+        golden["matches"]
+
+
+@pytest.mark.parametrize("name", ["masked360", "e2e360_16ori", "color1000",
+                                  "wide1000x128", "wide1000x256"])
+def test_full_size_mode_matches_committed_golden(name):
+    """The 1024x1024 golden of each input mode (mask, 16 orientations, BGR
+    color, wide banks: 128 and 256 features, the latter 142 slots at the
+    coarse level). The 8191-feature golden is held on the card only
+    (chip_smoke.py): its level-0 window twin takes about 18 s here."""
+    _, got, want = _golden_match(name)
+    assert [list(k) for k in _keys(got)] == want
+    assert len(got) > 0
 
 
 def test_full_size_dense_bank_matches_committed_golden():

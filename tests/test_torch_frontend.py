@@ -3,8 +3,11 @@
 Covers ops/fastmath, ops/filters, ops/gradients and ops/response of
 shape_based_matching_tpu_torch, and the plain twin of the CUDA frontend
 kernel (ops/cuda/frontend.quant_spread on CPU tensors) against the JAX
-Pallas frontend kernel run in interpret mode. Inputs are numpy arrays
-from fixed seeds, handed to both packages; tolerance is exact equality.
+Pallas frontend kernel run in interpret mode, in every mode: gray or
+color, 8 or 16 orientations, masked, with the quantized plane. The
+16-orientation pieces are also held to the compiled C++ experiment's
+goldens (tests/goldens/kern16_*). Inputs are numpy arrays from fixed
+seeds, handed to both packages; tolerance is exact equality.
 """
 
 import jax
@@ -23,6 +26,7 @@ from shape_based_matching_tpu_torch.ops import fastmath, filters, gradients
 from shape_based_matching_tpu_torch.ops import response
 from shape_based_matching_tpu_torch.ops.cuda.frontend import (
     quant_spread, quant_spread_plain)
+from .golden_utils import load_mat
 
 
 def _frames(seed, h, w, n=1):
@@ -123,3 +127,111 @@ def test_build_lm_from_spread_equals_jax(T):
     np.testing.assert_array_equal(
         response.spread(torch.from_numpy(q), T).numpy(),
         np.asarray(jrs.spread(jnp.asarray(q), T)))
+
+
+def _bgr(img):
+    """A BGR frame from a gray one: channels 0 and 2 tie in |grad|^2 at
+    every pixel (so the first-max rule decides), channel 1 is shifted."""
+    return np.stack([img, np.roll(img, 1, axis=1), 255 - img], axis=-1)
+
+
+def _planar(img):
+    t = torch.from_numpy(np.array(img[None]))
+    return t.permute(0, 3, 1, 2).contiguous() if img.ndim == 3 else t
+
+
+# mode: (color, n_ori, masked, with_quant)
+_MODES = {
+    "color8": (True, 8, False, False),
+    "gray16": (False, 16, False, False),
+    "color16": (True, 16, False, False),
+    "masked_gray8": (False, 8, True, False),
+    "masked_color16": (True, 16, True, False),
+    "with_quant": (False, 8, False, True),
+}
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("T", [4, 8])
+def test_frontend_modes_plain_equal_pallas_interpret(mode, T):
+    """Every mode of the frontend's plain twin against the JAX Pallas
+    kernel in interpret mode, bit for bit: spread plane (uint16 for 16
+    orientations) and, with_quant, the quantized plane."""
+    color, n_ori, masked, with_quant = _MODES[mode]
+    gray = _scene(T + 17, 48, 80)
+    img = _bgr(gray) if color else gray
+    mask = ((np.random.RandomState(T).rand(48, 80) > 0.25) * 255
+            ).astype(np.uint8) if masked else None
+    want = quant_spread_pallas(
+        jnp.asarray(img), jnp.float32(30.0) ** 2, T, with_quant=with_quant,
+        interpret=True, n_ori=n_ori,
+        mask=None if mask is None else jnp.asarray(mask))
+    got = quant_spread(_planar(img), 30.0, T, n_ori,
+                       None if mask is None else torch.from_numpy(mask[None]),
+                       with_quant)
+    want = want if with_quant else (want,)
+    got = got if with_quant else (got,)
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.uint8 if n_ori == 8 else torch.uint16)
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
+    assert int((got[0].to(torch.int32) > 0).sum()) > 100
+
+
+def test_quantized16_color_equals_compiled_golden():
+    """The 16-orientation color quantization of the compiled experiment's
+    BGR crop (tests/goldens/kern16_*, tests/test_golden_16ori.py)."""
+    img = load_mat("kern16_img.bin")
+    got = gradients.quantized_orientations_color(_planar(img)[0], 30.0, 16)
+    np.testing.assert_array_equal(
+        got.angle.numpy(), load_mat("kern16_quantized.bin", dtype=np.uint16))
+    want = jgr.quantized_orientations(img, 30.0, n_ori=16)
+    np.testing.assert_array_equal(got.magnitude.numpy(),
+                                  np.asarray(want.magnitude))
+
+
+def test_response_maps16_equal_jax():
+    """The compiled 16-orientation LUT, dead bits 12..15 included, on every
+    12-bit value and random 16-bit ones."""
+    rng = np.random.RandomState(0)
+    s = np.concatenate([np.arange(4096), rng.randint(0, 1 << 16, 4096)]
+                       ).astype(np.uint16).reshape(128, 64)
+    np.testing.assert_array_equal(
+        response.response_maps(torch.from_numpy(s), 16).numpy(),
+        np.asarray(jrs.response_maps(jnp.asarray(s), 16)))
+
+
+@pytest.mark.parametrize("T", [4, 8])
+def test_spread_response_lm16_equal_compiled_golden(T):
+    quant = torch.from_numpy(np.array(load_mat("kern16_quantized.bin",
+                                               dtype=np.uint16)))
+    sp = response.spread(quant, T)
+    np.testing.assert_array_equal(
+        sp.numpy(), load_mat(f"kern16_spread_T{T}.bin", dtype=np.uint16))
+    np.testing.assert_array_equal(
+        response.response_maps(sp, 16).numpy().reshape(-1, 128),
+        load_mat(f"kern16_resp_T{T}.bin"))
+    lm = response.build_lm_from_spread(sp, T, 16)
+    np.testing.assert_array_equal(lm.numpy().reshape(-1, lm.shape[-1]),
+                                  load_mat(f"kern16_lm_T{T}.bin"))
+
+
+def test_resize_nearest_equals_jax_in_float32():
+    """Ratios that are not powers of two; at 26 -> 22 (so 52 -> 44) the
+    index floor(i * h/oh) taken in float32, as JAX takes it, differs from
+    float64's, and the port follows float32."""
+    img = _frames(5, 52, 78)[0]
+    i = np.arange(44)
+    f32 = np.floor(i.astype(np.float32) * np.float32(52 / 44)).astype(int)
+    assert (f32 != np.floor(i * (52 / 44)).astype(int)).any()
+    for out_hw in ((44, 66), (30, 50)):
+        np.testing.assert_array_equal(
+            filters.resize_nearest(torch.from_numpy(img), out_hw).numpy(),
+            np.asarray(jfl.resize_nearest(jnp.asarray(img), out_hw)))
+
+
+def test_pyr_down_planar_color_equals_jax():
+    img = np.random.RandomState(6).randint(0, 256, (40, 54, 3),
+                                           dtype=np.uint8)
+    got = filters.pyr_down_u8(_planar(img)[0]).permute(1, 2, 0)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jfl.pyr_down_u8(jnp.asarray(img))))

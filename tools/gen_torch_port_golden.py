@@ -1,21 +1,38 @@
 """Generate the full-size JAX goldens that the PyTorch port is held to.
 
-Runs the JAX package's XLA path (``Detector(use_pallas=False)``) once on
-each configuration -- a 1024x1024 ``synthetic_scene`` with four instances
-(seed 3), T=(4, 8), threshold 85, and one committed rotation bank:
+Runs the JAX package's XLA path (``Detector(use_pallas=False)``) on CPU
+once per configuration and writes its match list as ``(template_id, x, y,
+similarity float32 bits)`` rows, with the configuration, to
+``tests/goldens/torch_port_<name>_matches.json``. Every configuration is
+a 1024x1024 frame matched at T=(4, 8) against one committed rotation bank
+from ``bench_banks/``:
 
-* ``e2e1000``: 1000 templates x 63 features, the flagship bank;
-* ``e2e10000``: 10,000 templates x 63 features, the dense bank whose
-  coarse level takes the delta chain and whose overflow re-run takes the
-  map route --
+* ``e2e1000``: the flagship, 1000 templates x 63 features, gray frame
+  ``synthetic_scene(..., n_instances=4, seed=3)``, threshold 85;
+* ``e2e10000``: the dense 10,000-template bank on that frame (delta-chain
+  coarse level, map-route re-run);
+* ``masked360``: 360 templates, that frame and the mask
+  ``RandomState(4).rand(1024, 1024) > 0.25`` (255 where true);
+* ``e2e360_16ori``: the 360-template 16-orientation bank on that frame,
+  threshold 80;
+* ``color1000``: the flagship bank on a BGR version of that frame
+  ``(f, roll(f, 1, axis=1), 255 - f)``, whose first and last channels tie
+  in gradient magnitude everywhere;
+* ``wide1000x128``: 1000 templates x 128 features (63 at the coarse
+  level), frame ``synthetic_scene(..., n_instances=2, seed=11)`` of the
+  star shape, threshold 88;
+* ``wide1000x256``: the dense 1000 x 256 bank trained on block noise (142
+  slots at the coarse level), on a seed-11 scene of its block-noise
+  template, threshold 88;
+* ``wide8191``: the dense 8 x 8191 bank, template size 768 (9126 slots
+  at level 0, 3073 at the coarse level), likewise at threshold 70.
 
-and writes each match list as ``(template_id, x, y, similarity float32
-bits)`` rows to ``tests/goldens/torch_port_<name>_matches.json``.
-
-``tests/test_torch_detector.py`` holds the port's CPU path and
-``chip_smoke.py`` the CUDA path to both files.
+``tests/test_torch_detector.py`` holds the port's CPU path, and
+``chip_smoke.py`` the CUDA path, to these files.
 
     JAX_PLATFORMS=cpu python tools/gen_torch_port_golden.py [name ...]
+
+(no name: all of them).
 """
 
 from __future__ import annotations
@@ -34,22 +51,68 @@ def golden_path(name: str) -> str:
                         f"torch_port_{name}_matches.json")
 
 
-def _config(num_templates: int) -> dict:
+def _config(num_templates: int, num_features: int = 63, *, size: int = 256,
+            dense: bool = False, n_ori: int = 8, n_instances: int = 4,
+            scene_seed: int = 3, threshold: float = 85.0,
+            mask_seed=None, color: bool = False) -> dict:
+    tags = ("_dense" if dense else "") + ("_ori16" if n_ori == 16 else "")
     return {
-        "bank": (f"bench_banks/rot{num_templates}x63_T4-8_s256_seed0"
-                 "_v1.npz"),
+        "bank": (f"bench_banks/rot{num_templates}x{num_features}_T4-8_s"
+                 f"{size}_seed0{tags}_v1.npz"),
         "num_templates": num_templates,
-        "num_features": 63,
+        "num_features": num_features,
+        "num_orientations": n_ori,
         "T": [4, 8],
         "height": 1024,
         "width": 1024,
-        "n_instances": 4,
-        "scene_seed": 3,
-        "threshold": 85.0,
+        # the pasted template: the star shape or block noise, of the
+        # bank's training size
+        "template": {"kind": "block_noise" if dense else "shape",
+                     "size": size},
+        "n_instances": n_instances,
+        "scene_seed": scene_seed,
+        "threshold": threshold,
+        # RandomState(mask_seed).rand(h, w) > 0.25 -> 255, else 0
+        "mask_seed": mask_seed,
+        # BGR frame (f, roll(f, 1, axis=1), 255 - f) of the gray scene f
+        "color": color,
     }
 
 
-CONFIGS = {"e2e1000": _config(1000), "e2e10000": _config(10000)}
+_WIDE = {"n_instances": 2, "scene_seed": 11, "threshold": 88.0}
+CONFIGS = {
+    "e2e1000": _config(1000),
+    "e2e10000": _config(10000),
+    "masked360": _config(360, mask_seed=4),
+    # threshold 80: at the JAX bench's 85 the list is empty (best 84.13)
+    "e2e360_16ori": _config(360, n_ori=16, threshold=80.0),
+    "color1000": _config(1000, color=True),
+    "wide1000x128": _config(1000, 128, **_WIDE),
+    "wide1000x256": _config(1000, 256, dense=True, **_WIDE),
+    # threshold 70: at the JAX bench's 88 the list is empty (best 74.42)
+    "wide8191": _config(8, 8191, size=768, dense=True,
+                        **dict(_WIDE, threshold=70.0)),
+}
+
+
+def frame_and_mask(cfg: dict, synthetic) -> tuple:
+    """The configuration's frame ([H, W] or [H, W, 3] uint8) and mask
+    ([H, W] uint8 or None), from a module with the synthetic_* functions
+    of either package."""
+    t = cfg["template"]
+    templ = (synthetic.synthetic_block_noise_image(t["size"], seed=0)
+             if t["kind"] == "block_noise"
+             else synthetic.synthetic_shape_image(t["size"], 0))
+    h, w = cfg["height"], cfg["width"]
+    f = synthetic.synthetic_scene(h, w, templ, n_instances=cfg["n_instances"],
+                                  seed=cfg["scene_seed"])
+    if cfg["color"]:
+        f = np.stack([f, np.roll(f, 1, axis=1), 255 - f], axis=-1)
+    mask = None
+    if cfg["mask_seed"] is not None:
+        rng = np.random.RandomState(cfg["mask_seed"])
+        mask = (rng.rand(h, w) > 0.25).astype(np.uint8) * 255
+    return f, mask
 
 
 def main(names) -> None:
@@ -57,19 +120,20 @@ def main(names) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from shape_based_matching_tpu.utils.synthetic import (
-        build_rotated_detector, synthetic_scene)
+    from shape_based_matching_tpu import Detector
+    from shape_based_matching_tpu.utils import synthetic
 
     for name in names or CONFIGS:
         cfg = CONFIGS[name]
-        det, templ = build_rotated_detector(
-            num_templates=cfg["num_templates"],
-            num_features=cfg["num_features"], T=tuple(cfg["T"]))
-        det.use_pallas = False
-        scene = synthetic_scene(cfg["height"], cfg["width"], templ,
-                                n_instances=cfg["n_instances"],
-                                seed=cfg["scene_seed"])
-        matches = det.match(scene, cfg["threshold"])
+        pyramids = synthetic.load_bank_cache(os.path.join(ROOT, cfg["bank"]))
+        if pyramids is None or len(pyramids) != cfg["num_templates"]:
+            raise SystemExit(f"{name}: bank {cfg['bank']} missing or stale")
+        det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                       num_orientations=cfg["num_orientations"],
+                       use_pallas=False)
+        det.class_templates["bench"] = pyramids
+        frame, mask = frame_and_mask(cfg, synthetic)
+        matches = det.match(frame, cfg["threshold"], mask=mask)
         rows = [[m.template_id, m.x, m.y,
                  int(np.float32(m.similarity).view(np.uint32))]
                 for m in matches]
