@@ -20,14 +20,14 @@ Phases, each reported on its own line:
    end-to-end ms/frame at B=1 and frames/s at B=8;
 6. the dense-bank path: the committed 10,000-template bank on the same
    frame. Its chain plan; the chain kernel against its twin and against
-   coarse.cu from scratch, the level maps and the map-window kernel
-   against their twins, all bitwise at the path's shapes; the B=1 match
-   (chain at the coarse level, overflow re-run at a cap of 4096 through
-   the map route) must equal its JAX golden and raise the counters of the
-   chain, level-map and map-window kernels; timings of each new kernel
-   against its twin, the chain against coarse.cu, the window route
-   against the map route at caps 1024, 4096 and 16384, and end to end at
-   B=1;
+   coarse.cu from scratch, the window at cap 256, the level maps and the
+   map-window kernel against their twins, all bitwise at the path's
+   shapes; the B=1 match (chain at the coarse level, overflow re-run at a
+   cap of 4096 through the map route) must equal its JAX golden and raise
+   the counters of the chain, level-map and map-window kernels; timings
+   of each kernel against its twin, the chain against coarse.cu, the
+   window route against the map route at caps 1024, 4096 and 16384, and
+   end to end at B=1;
 7. the input modes: the frontend kernel against its twin, bitwise, at
    1024x1024 (the flagship frame and noise, T=4 and T=8) in six modes --
    color 8-orientation, gray 16, color 16, masked gray 8, masked color
@@ -41,7 +41,10 @@ Phases, each reported on its own line:
    against their twins bitwise; the match list must equal its JAX golden
    (the C++ golden under the contract of tests/test_golden_16ori.py for
    the experiment's frame), the counters of its kernels must rise, and
-   the match is timed (mean of 10 warm calls between CUDA events).
+   the match is timed (mean of 10 warm calls between CUDA events). Where
+   the frame overflows the cap of 256, the re-run's level-0 kernels (the
+   window at its cap, or the level maps and the map window) are held
+   against their twins and timed too.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -207,7 +210,7 @@ def _scene(cfg):
 
 
 def _map_route_check(lms: tuple, banks: list, sizes: list, thr, cap: int,
-                     plan=None) -> dict:
+                     plan=None, n_ori: int = 8) -> dict:
     """The map route of an overflow re-run at candidate cap `cap`, step by
     step as ``refine_by_maps`` takes it on frame 0 of `lms`: the coarse
     candidates (through the chain `plan` when given), their distinct
@@ -223,7 +226,7 @@ def _map_route_check(lms: tuple, banks: list, sizes: list, thr, cap: int,
         distinct_templates, gather_bank)
 
     k, x, y, _, valid, n_above = coarse_extract(
-        lms[1], banks[1], T_LEVELS[1], sizes[1], thr, cap, plan)
+        lms[1], banks[1], T_LEVELS[1], sizes[1], thr, cap, plan, n_ori)
     T0, (w0, h0) = T_LEVELS[0], sizes[0]
     W0, M0 = w0 // T0, (w0 // T0) * (h0 // T0)
     K = banks[0].fx.shape[0]
@@ -231,7 +234,7 @@ def _map_route_check(lms: tuple, banks: list, sizes: list, thr, cap: int,
     n = int(n_distinct)
     D = next((d for d in _D_BUCKETS if n <= d < K), K)
     off0 = _flat_offsets(gather_bank(banks[0], slots[:D]), T0, W0, M0,
-                         sizes[0])
+                         sizes[0], n_ori)
     maps_args = (lms[0], off0, M0)
     maps = coarse_maps(*maps_args)
     maps_err = _max_abs_err([(maps, coarse_maps_plain(*maps_args))])
@@ -306,9 +309,10 @@ def dense_phase(card: str) -> tuple[list, dict]:
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
         map_refine, map_refine_plain)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
-        refine_windows)
+        refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _flat_offsets, _positions, _rmin_for_threshold)
+        _flat_offsets, _positions, _rmin_for_threshold, _window_origin,
+        coarse_extract)
     from shape_based_matching_tpu_torch.utils.synthetic import (
         load_bank_cache)
 
@@ -358,9 +362,19 @@ def dense_phase(card: str) -> tuple[list, dict]:
           f"scratch: max_abs_err {scratch_err}; K={off1.shape[0]} "
           f"N={off1.shape[1]} M={M1}, candidates above threshold "
           f"{int(cnt.sum())}")
+    k, x, y, _, valid, _ = coarse_extract(lms[1], banks[1], T1, sizes[1],
+                                          thr, 256, plan)
+    wx, wy = _window_origin(banks[0], T_LEVELS[0], sizes[0], k, x, y)
+    k3_args = (lms[0], banks[0], T_LEVELS[0], sizes[0], k, wx, wy, valid)
+    k3_err = _max_abs_err(zip(refine_windows(*k3_args),
+                              refine_windows_plain(*k3_args)))
+    N0 = banks[0].fx.shape[1]
+    print(f"K8 refine vs plain at cap 256: max_abs_err {k3_err}, "
+          f"{int(valid.sum())} live, N={N0}")
     cap = 4096
     mr = _map_route_check(lms, banks, sizes, thr, cap, plan)
-    if chain_err or scratch_err or mr["maps_err"] or mr["mr_err"]:
+    if (chain_err or scratch_err or k3_err or mr["maps_err"]
+            or mr["mr_err"]):
         raise AssertionError("a dense-path kernel disagrees")
 
     # 3. the dense path through the kernels
@@ -392,6 +406,11 @@ def dense_phase(card: str) -> tuple[list, dict]:
          lambda: chain_scores_plain(*chain_args),
          f"K={off1.shape[0]} M={M1}, {visits} slots",
          _chain_work(lms[1], plan, off1.shape[0], M1)),
+        (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
+         lambda: refine_windows(*k3_args),
+         lambda: refine_windows_plain(*k3_args),
+         f"C=256 N={N0} ({int(valid.sum())} live)",
+         _refine_work(lms[0], banks[0], k, valid)),
         (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
          mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
          lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
@@ -568,14 +587,14 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     Returns the path's kernel records and its report."""
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import (
-        _batch_pyramid)
+        _CAND_BUCKETS, _batch_pyramid)
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
-        coarse_maps, coarse_scores, coarse_scores_plain)
+        coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
-        map_refine)
+        map_refine, map_refine_plain)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.filters import (
@@ -657,8 +676,43 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
           f"{'C++' if name == 'case16' else 'JAX'} golden ({len(got)} "
           f"matches)")
 
-    # timings
+    # timings, the overflow re-run's level-0 kernels included
     e2e_ms = _time_ms(lambda: det.match(frame, threshold, mask=mask), 10)
+    rerun = ()
+    if int(n_above[0]) > 256:
+        re_cap = next(c for c in _CAND_BUCKETS if c >= int(n_above[0]))
+        if routes.get("maps"):
+            mr = _map_route_check(lms, banks, sizes, thr, re_cap, None,
+                                  n_ori)
+            rerun = (
+                (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
+                 mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
+                 lambda: coarse_maps_plain(*mr["maps_args"]),
+                 mr["maps_shape"],
+                 _coarse_work(*mr["maps_args"], counted=False)),
+                (map_refine, "map_refine.cu", "refine_pallas.py:121",
+                 mr["mr_err"], lambda: map_refine(*mr["mr_args"]),
+                 lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
+                 _map_refine_work(mr["mr_args"][0], mr["mr_args"][5])))
+        else:
+            rk, rx, ry, _, rvalid, _ = coarse_extract(
+                lms[1], banks[1], T1, sizes[1], thr, re_cap, None, n_ori)
+            rwx, rwy = _window_origin(banks[0], T[0], sizes[0], rk, rx, ry)
+            re_args = (lms[0], banks[0], T[0], sizes[0], rk, rwx, rwy,
+                       rvalid, n_ori)
+            rerun = ((refine_windows, "refine.cu", "refine_pallas.py:67",
+                      _max_abs_err(zip(refine_windows(*re_args),
+                                       refine_windows_plain(*re_args[:-1]))),
+                      lambda: refine_windows(*re_args),
+                      lambda: refine_windows_plain(*re_args[:-1]),
+                      f"C={re_cap} N={N0} ({int(rvalid.sum())} live)",
+                      _refine_work(lms[0], banks[0], rk, rvalid)),)
+        print(f"{name}: overflow re-run at cap {re_cap}: "
+              + ", ".join(f"{r[0].__name__} [{r[6]}] vs plain max_abs_err "
+                          f"{r[3]}" for r in rerun))
+        if any(r[3] for r in rerun):
+            raise AssertionError(f"{name}: a re-run kernel disagrees with "
+                                 f"its twin")
     table = (
         (quant_spread, "frontend.cu", "frontend_pallas.py:108",
          k1_err, lambda: quant_spread(frames, weak, T[0], n_ori, masks),
@@ -673,9 +727,10 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
          _coarse_work(lms[1], off, M1, counted=True)),
         (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
          lambda: refine_windows(*k3_args),
-         lambda: refine_windows_plain(*k3_args[:-1]), f"C=256 N={N0}",
+         lambda: refine_windows_plain(*k3_args[:-1]),
+         f"C=256 N={N0} ({int(valid.sum())} live)",
          _refine_work(lms[0], banks[0], k, valid)),
-    )
+    ) + rerun
     records = []
     for fn, src, replaces, err, kern, plain, shape, work in table:
         ms = _time_ms(kern, 20)
@@ -852,7 +907,7 @@ def main() -> None:
         (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
          lambda: refine_windows(*k3_args),
          lambda: refine_windows_plain(*k3_args),
-         f"C=256 N={banks[0].fx.shape[1]}",
+         f"C=256 N={banks[0].fx.shape[1]} ({int(valid.sum())} live)",
          _refine_work(lms[0], banks[0], k, valid)),
         (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
          mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),

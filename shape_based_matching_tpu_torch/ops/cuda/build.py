@@ -50,9 +50,10 @@ SIGNATURES = {
     # img, mask, out, quant, B, H, W, T, n_ori, channels, thr_sq, stream
     # (mask and quant may be null)
     "sbm_quant_spread": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # lmflat, lm_stride, off, pos, rmin, S, cnt, B, K, N, M, stream
-    # (pos, rmin and cnt null: the count is off)
-    "sbm_coarse_scores": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # lmflat, lm_stride, off, pos, rmin, S, cnt, B, K, N, M, G, chunk,
+    # stream (pos, rmin and cnt null: the count is off)
+    "sbm_coarse_scores": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P),
     # lmflat, lm_stride, prog_start, slot_start, slots, pos, rmin, S, cnt,
     # B, P, K, M, stream
     "sbm_chain_scores": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -60,9 +61,10 @@ SIGNATURES = {
     # Sfull, D, M, W, slot, wx, wy, live, best, raw, B, C, stream
     "sbm_map_refine": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # lmflat, lm_stride, fx, fy, label, fvalid, k, wx, wy, live,
-    # best, raw, B, C, N, w_img, h_img, T, stream
+    # best, raw, part, B, C, N, w_img, h_img, T, CB, G, chunk, stream
+    # (part null when CB is 1)
     "sbm_refine_windows": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _P),
+                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -13,6 +13,8 @@ have no feature limit, so one kernel serves every bank width.
 
 On a CPU tensor each wrapper runs its plain twin (``coarse_scores_plain``,
 ``coarse_maps_plain``); on a CUDA tensor it launches the kernel or raises.
+``coarse_split`` chooses, from the shapes alone, how many slot groups the
+kernel spreads over blocks (see ``csrc/coarse.cu``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,26 @@ def coarse_scores_plain(lmflat: torch.Tensor, off: torch.Tensor,
     return S, count_live(S, pos, rmin)
 
 
+SM_COUNT = 132        # streaming multiprocessors of one H100 SXM
+FULL_BLOCKS = 8 * SM_COUNT  # 256-thread blocks the card holds at once
+TILE = 1024           # cells per block of coarse.cu (256 threads x 4)
+MIN_GROUP_SLOTS = 64  # fewest slots worth a block of their own
+
+
+def coarse_split(B: int, K: int, N: int, M: int) -> tuple[int, int]:
+    """(G, chunk): coarse.cu sums slots [g * chunk, min(N, (g + 1) *
+    chunk)) in slot group g < G. G = 1 when B * K * ceil(M / TILE) blocks
+    already fill the card (FULL_BLOCKS), or when N is too short to
+    share; otherwise the fewest groups that fill it, each of at least
+    MIN_GROUP_SLOTS slots."""
+    blocks = B * K * -(-M // TILE)
+    if blocks >= FULL_BLOCKS or N < 2 * MIN_GROUP_SLOTS:
+        return 1, max(N, 1)
+    G = min(-(-FULL_BLOCKS // blocks), N // MIN_GROUP_SLOTS)
+    chunk = -(-N // G)
+    return -(-N // chunk), chunk
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
@@ -82,7 +104,10 @@ def _launch(lmflat, off, M, pos=None, rmin=None):
     pos is None. Returns (S, cnt or None)."""
     B, Lf = lmflat.shape
     K, N = off.shape
-    S = torch.empty((B, K, M), dtype=torch.int32, device=lmflat.device)
+    G, chunk = coarse_split(B, K, N, M)
+    # a split launch adds its partial sums into a zeroed S
+    S = (torch.zeros if G > 1 else torch.empty)(
+        (B, K, M), dtype=torch.int32, device=lmflat.device)
     cnt = None if pos is None else torch.zeros(
         (B, K), dtype=torch.int32, device=lmflat.device)
     if B == 0 or K == 0:
@@ -92,7 +117,7 @@ def _launch(lmflat, off, M, pos=None, rmin=None):
         lmflat.data_ptr(), Lf, off.data_ptr(),
         None if pos is None else pos.data_ptr(),
         None if rmin is None else rmin.data_ptr(), S.data_ptr(),
-        None if cnt is None else cnt.data_ptr(), B, K, N, M,
+        None if cnt is None else cnt.data_ptr(), B, K, N, M, G, chunk,
         build.stream_ptr(lmflat.device)), "sbm_coarse_scores")
     return S, cnt
 

@@ -9,7 +9,9 @@ and the argmax of its epilogue. Candidates with ``live`` False do no work
 and report 0, 0.
 
 On a CPU tensor the wrapper runs ``refine_windows_plain``; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. ``refine_split`` chooses, from
+the shapes alone, how the kernel shares a bank's features among blocks
+(see ``csrc/refine.cu``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,23 @@ def refine_windows_plain(lmflat: torch.Tensor, bank, T: int, size_wh,
     return best.to(torch.int32), raw.to(torch.int32)
 
 
+FEATS_PER_BLOCK = 504  # features a block sums (refine.cu's CLUSTER_CHUNK)
+CLUSTER = 8            # candidates of a cluster_kernel block
+
+
+def refine_split(N: int) -> tuple[int, int, int]:
+    """(CB, G, chunk): refine.cu gives each block CB candidates and, in
+    feature group g < G, features [g * chunk, min(N, (g + 1) * chunk)).
+    A bank of at most FEATS_PER_BLOCK features stays whole in one block
+    per candidate (window_kernel: the flagship's 63); a longer one goes
+    to cluster_kernel, CLUSTER candidates a block, in the fewest groups
+    of at most FEATS_PER_BLOCK features, and on to the argmax pass."""
+    if N <= FEATS_PER_BLOCK:
+        return 1, 1, max(N, 1)
+    G = -(-N // FEATS_PER_BLOCK)
+    return CLUSTER, G, -(-N // G)
+
+
 def refine_windows(lmflat: torch.Tensor, bank, T: int, size_wh,
                    k: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
                    live: torch.Tensor, n_ori: int = 8):
@@ -93,19 +112,27 @@ def refine_windows(lmflat: torch.Tensor, bank, T: int, size_wh,
     if Lf != (n_ori * T * T + 1) * (w_img // T) * (h_img // T):
         raise ValueError(f"lmflat length {Lf} does not match {size_wh} at "
                          f"T={T}, {n_ori} orientations")
+    if Lf >= 1 << 30:
+        raise ValueError(f"lmflat length {Lf} needs 64-bit indices")
     k, wx, wy, live = (t.contiguous() for t in (k, wx, wy, live))
     C = k.shape[1]
     best = torch.empty((B, C), dtype=torch.int32, device=lmflat.device)
     raw = torch.empty_like(best)
     if B == 0 or C == 0:
         return best, raw
+    CB, G, chunk = refine_split(N)
+    # cluster_kernel adds partial windows into a zeroed scratch
+    part = torch.zeros((B, C, 256), dtype=torch.int32,
+                       device=lmflat.device) if CB > 1 else None
     lib = build.library()
     build.check(lib.sbm_refine_windows(
         lmflat.data_ptr(), Lf, bank.fx.data_ptr(),
         bank.fy.data_ptr(), bank.label.data_ptr(), bank.valid.data_ptr(),
         k.data_ptr(), wx.data_ptr(), wy.data_ptr(), live.data_ptr(),
-        best.data_ptr(), raw.data_ptr(), B, C, N, w_img, h_img, T,
-        build.stream_ptr(lmflat.device)), "sbm_refine_windows")
+        best.data_ptr(), raw.data_ptr(),
+        None if part is None else part.data_ptr(), B, C, N, w_img, h_img,
+        T, CB, G, chunk, build.stream_ptr(lmflat.device)),
+        "sbm_refine_windows")
     refine_windows.launches += 1
     return best, raw
 

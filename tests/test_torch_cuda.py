@@ -56,11 +56,23 @@ def _bank(rng, K, n_max, size, device):
     return pack_level_bank(templates, device=device)
 
 
-def _lmflat(rng, B, T, w, h, device):
+def _lmflat(rng, B, T, w, h, device, n_ori=8, fill=None):
+    """B frames of random responses (or every byte `fill`: a saturated
+    frame) and the zero tail."""
     M = (w // T) * (h // T)
-    lm = rng.choice(np.array([0, 0, 3, 4], np.uint8), (B, 8 * T * T * M))
+    shape = (B, n_ori * T * T * M)
+    lm = (rng.choice(np.array([0, 0, 3, 4], np.uint8), shape)
+          if fill is None else np.full(shape, fill, np.uint8))
     flat = np.concatenate([lm, np.zeros((B, M), np.uint8)], axis=1)
     return torch.from_numpy(flat).to(device)
+
+
+def _exact_bank(rng, K, N, size, device):
+    """K templates of exactly N features inside a size x size box."""
+    return pack_level_bank([{
+        "features": [(int(rng.randint(0, size)), int(rng.randint(0, size)),
+                      int(rng.randint(0, 8))) for _ in range(N)],
+        "width": size, "height": size} for _ in range(K)], device=device)
 
 
 @pytest.mark.parametrize("h,w", [(37, 53), (72, 200), (256, 256)])
@@ -304,3 +316,156 @@ def test_detector_cuda_equals_cpu(dev):
     assert any(key)
     assert key == [[(m.template_id, m.x, m.y, m.similarity) for m in ms]
                    for ms in out[1]]
+
+
+def _coarse_case(lmflat, bank, T, size_wh, threshold, n_ori=8):
+    """coarse_scores and coarse_maps against their twins, bitwise."""
+    W, H = size_wh[0] // T, size_wh[1] // T
+    M = W * H
+    off = _flat_offsets(bank, T, W, M, size_wh, n_ori)
+    pos = _positions(bank, T, W, H)
+    rmin, _ = _rmin_for_threshold(bank.nfeat, torch.tensor(
+        threshold, device=lmflat.device))
+    got = coarse_scores(lmflat, off, pos, rmin, M)
+    maps = coarse_maps(lmflat, off, M)
+    torch.cuda.synchronize()
+    want = coarse_scores_plain(lmflat, off, pos, rmin, M)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    assert torch.equal(maps, want[0])
+    return got
+
+
+@pytest.mark.parametrize("B", [2, 3])
+@pytest.mark.parametrize("K,n_max", [(37, 70), (2, 3000)])
+def test_coarse_kernel_odd_m(dev, B, K, n_max):
+    """A 464x592 frame's coarse level at T=8 with 16 orientations: M =
+    29 x 37 = 1073 cells and an odd lmflat length, so every frame after
+    the first starts unaligned and M is no multiple of 4; K=2 x 3000
+    slots takes the split launch."""
+    rng = np.random.RandomState(B * K)
+    size_wh = (232, 296)
+    lmflat = _lmflat(rng, B, 8, *size_wh, dev, n_ori=16)
+    assert lmflat.shape[1] % 2 == 1
+    _coarse_case(lmflat, _bank(rng, K, n_max, 48, dev), 8, size_wh, 50.0,
+                 n_ori=16)
+
+
+@pytest.mark.parametrize("K,n_max", [(37, 70), (2, 3000)])
+def test_coarse_kernel_sliced_frame(dev, K, n_max):
+    """Frames 1 and 2 of an odd-length batch as the overflow re-run
+    slices them: unaligned data_ptr, and the last one ends the storage."""
+    rng = np.random.RandomState(K)
+    size_wh = (232, 296)
+    lmflat = _lmflat(rng, 3, 8, *size_wh, dev, n_ori=16)
+    bank = _bank(rng, K, n_max, 48, dev)
+    for b in (1, 2):
+        frame = lmflat[b:b + 1]
+        assert frame.data_ptr() % 4 != 0
+        _coarse_case(frame, bank, 8, size_wh, 50.0, n_ori=16)
+
+
+@pytest.mark.parametrize("N", [63, 64, 126, 127, 3073])
+def test_coarse_kernel_saturated(dev, N):
+    """Every response byte 4: the packed lanes at their limit (63 slots
+    make 252), one slot past it, and the split launch at 3073 slots."""
+    rng = np.random.RandomState(N)
+    lmflat = _lmflat(rng, 2, 8, 512, 512, dev, fill=4)
+    S, _ = _coarse_case(lmflat, _exact_bank(rng, 8, N, 40, dev), 8,
+                        (512, 512), 90.0)
+    assert int(S.max()) == 4 * N
+
+
+def _refine_case(lmflat, bank, T, size_wh, k, wx, wy, live):
+    args = (lmflat, bank, T, size_wh, k, wx, wy, live)
+    got = refine_windows(*args)
+    torch.cuda.synchronize()
+    want = refine_windows_plain(*args)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    return got
+
+
+def _windows(rng, B, C, K, W, H, dev, n_live=None):
+    """Random candidates: template, window origin (some off the frame's
+    top left or past its far end) and live flags (the first n_live, or
+    70% at random)."""
+    def ints(lo, hi):
+        return torch.from_numpy(rng.randint(lo, hi, (B, C))
+                                .astype(np.int32)).to(dev)
+
+    live = (np.arange(C)[None, :] < n_live).repeat(B, 0) if n_live \
+        is not None else rng.rand(B, C) > 0.3
+    return (ints(0, K), ints(-2, W), ints(-2, H),
+            torch.from_numpy(live).to(dev))
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_refine_kernel_sliced_frame(dev, b):
+    """116x116 at T=4: 29 x 29 cells and an odd lmflat length, so frame
+    1 of 3 starts unaligned and frame 2 ends the storage."""
+    rng = np.random.RandomState(b)
+    lmflat = _lmflat(rng, 3, 4, 116, 116, dev)
+    bank = _bank(rng, 9, 300, 40, dev)
+    frame = lmflat[b:b + 1]
+    assert frame.data_ptr() % 4 != 0
+    _refine_case(frame, bank, 4, (116, 116),
+                 *_windows(rng, 1, 70, 9, 29, 29, dev))
+
+
+@pytest.mark.parametrize("N", [63, 64, 126, 127, 9126])
+def test_refine_kernel_saturated(dev, N):
+    """Every response byte 4 at the packed lanes' limit and past it, and
+    split across blocks at 9126 features."""
+    rng = np.random.RandomState(N)
+    lmflat = _lmflat(rng, 2, 4, 256, 256, dev, fill=4)
+    bank = _exact_bank(rng, 3, N, 40, dev)
+    best, raw = _refine_case(lmflat, bank, 4, (256, 256),
+                             *_windows(rng, 2, 40, 3, 64, 64, dev))
+    assert int(raw.max()) == 4 * N
+
+
+@pytest.mark.parametrize("n_live", [8, 256])
+def test_refine_kernel_wide_8191_bank(dev, n_live):
+    """The committed 8 x 8191 dense bank's level 0 (9126 slots) at a
+    1024^2 frame (T=4), 256 candidates of which the first 8 or all are
+    live: the split launch at the wide8191 path's shapes."""
+    pyr = synthetic.load_bank_cache(synthetic.bank_cache_path(
+        8, 8191, size=768, dense=True))
+    bank = LevelBank(*(f.to(dev) for f in pyramids_to_banks(pyr, 2)[0]))
+    assert bank.fx.shape == (8, 9126)
+    rng = np.random.RandomState(n_live)
+    lmflat = _lmflat(rng, 1, 4, 1024, 1024, dev)
+    _refine_case(lmflat, bank, 4, (1024, 1024),
+                 *_windows(rng, 1, 256, 8, 240, 240, dev, n_live))
+
+
+@pytest.mark.parametrize("N", [40, 700])
+def test_refine_kernel_clamps_at_frame_end(dev, N):
+    """A 128x48 frame at T=4 (32 x 12 cells): windows run past the last
+    row, so indices clamp to the frame's last byte. The tail bytes are
+    set (1..4), so a read of the wrong byte, or of the next frame's
+    head, changes the sums; 700 features take the split launch."""
+    rng = np.random.RandomState(N)
+    lmflat = _lmflat(rng, 2, 4, 128, 48, dev)
+    M = 32 * 12
+    lmflat[:, -M:] = torch.from_numpy(rng.randint(1, 5, (2, M)).astype(
+        np.uint8)).to(dev)
+    bank = _bank(rng, 5, N, 40, dev)
+    _refine_case(lmflat, bank, 4, (128, 48),
+                 *_windows(rng, 2, 70, 5, 32, 12, dev))
+
+
+@pytest.mark.parametrize("N", [63, 700])
+def test_refine_kernel_ties_take_first_max(dev, N):
+    """A constant lmflat (tail included): every cell of a window ties,
+    so the first cell in rr*16 + cc order must win, also when the
+    features are summed in groups across blocks (700)."""
+    rng = np.random.RandomState(N)
+    lmflat = torch.full((2, (8 * 16 + 1) * 32 * 32), 2, dtype=torch.uint8,
+                        device=dev)
+    bank = _exact_bank(rng, 4, N, 40, dev)
+    k, wx, wy, live = _windows(rng, 2, 64, 4, 32, 32, dev)
+    best, raw = _refine_case(lmflat, bank, 4, (128, 128), k, wx, wy, live)
+    assert int(best.max()) == 0
+    assert torch.equal(raw[live], torch.full_like(raw[live], 2 * N))

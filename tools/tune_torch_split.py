@@ -1,0 +1,175 @@
+"""Time the split choices of coarse.cu and refine.cu on one NVIDIA GPU.
+
+    python tools/tune_torch_split.py [--iters 30]
+
+At the shapes the PyTorch port's match paths give these kernels -- the
+flagship (1000 x 32 coarse slots, 256 windows of 63 features, level maps
+of 1024 templates of the 10,000-template bank), and the 8 x 8191 bank
+(8 x 3073 coarse slots, windows of 9126 features at caps 256 and 1024,
+on its own frame and candidates) -- each candidate split (slot groups G
+of coarse.cu; candidates per block CB and feature groups G of refine.cu)
+is held against the plain twin bitwise and then timed with CUDA events
+(warm mean of `iters` queued launches). The wrapper's own choice
+(``coarse_split`` / ``refine_split``) is marked; refine.cu's CB is 1
+(window_kernel) or 8 (cluster_kernel). Prints one line per
+choice and writes chiprun_out/tune_torch_split.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _coarse_cases(cs):
+    """(name, args of coarse_scores or coarse_maps, counted)."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import (
+        _batch_pyramid)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold, gather_bank)
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        load_bank_cache)
+
+    out = []
+    for name in ("e2e1000", "wide8191"):
+        kwargs, cid, pyramids, frame, mask, thr, _ = (
+            cs._mode_path(name) if name != "e2e1000" else _flagship(cs))
+        det = Detector(**kwargs, device="cuda")
+        det.class_templates[cid] = pyramids
+        banks = det._get_banks(cid)
+        sizes = det._level_sizes(frame.shape[:2])
+        frames, _ = cs._upload(frame, None, torch.device("cuda"))
+        lms = _batch_pyramid(frames, det.T_at_level, det.pyramid_levels,
+                             det.weak_threshold)
+        T1, (w1, h1) = det.T_at_level[1], sizes[1]
+        W1, H1 = w1 // T1, h1 // T1
+        off = _flat_offsets(banks[1], T1, W1, W1 * H1, sizes[1])
+        pos = _positions(banks[1], T1, W1, H1)
+        rmin, _ = _rmin_for_threshold(banks[1].nfeat, torch.tensor(
+            float(thr), device="cuda"))
+        out.append((f"{name} coarse K={off.shape[0]} N={off.shape[1]}",
+                    (lms[1], off, pos, rmin, W1 * H1), True, det, banks,
+                    sizes, lms, thr))
+    # level maps of 1024 of the 10,000 templates at level 0 of the
+    # flagship frame (the dense re-run's D bucket)
+    det, lms = out[0][3], out[0][6]
+    pyr = load_bank_cache(os.path.join(ROOT, json.load(open(
+        cs.DENSE_GOLDEN))["config"]["bank"]))
+    det.class_templates["dense"] = pyr
+    bank0 = det._get_banks("dense")[0]
+    ids = np.sort(np.random.RandomState(0).choice(10000, 1024, False))
+    sub = gather_bank(bank0, torch.from_numpy(ids.astype(np.int32)).cuda())
+    T0, (w0, h0) = det.T_at_level[0], out[0][5][0]
+    off0 = _flat_offsets(sub, T0, w0 // T0, (w0 // T0) * (h0 // T0),
+                         (w0, h0))
+    out.append(("dense level maps D=1024 N=63",
+                (lms[0], off0, (w0 // T0) * (h0 // T0)), False, None, None,
+                None, None, None))
+    return out
+
+
+def _flagship(cs):
+    golden = json.load(open(cs.GOLDEN))
+    cfg = golden["config"]
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        load_bank_cache)
+
+    pyramids = load_bank_cache(os.path.join(ROOT, cfg["bank"]))
+    return ({"num_features": cfg["num_features"], "T": tuple(cfg["T"])},
+            golden["class_id"], pyramids, cs._scene(cfg), None,
+            cs.THRESHOLD, None)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--iters", type=int, default=30)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("tune_torch_split: CUDA is not available")
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from shape_based_matching_tpu_torch.ops.cuda import coarse, refine
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _window_origin, coarse_extract)
+
+    card = f"{torch.cuda.get_device_name(0)} [{cs._nvidia_smi()}]"
+    print(card)
+    rows = []
+    own_coarse, own_refine = coarse.coarse_split, refine.refine_split
+    cases = _coarse_cases(cs)
+    for name, cargs, counted, *_ in cases:
+        lmflat, off = cargs[0], cargs[1]
+        B, K, N, M = lmflat.shape[0], *off.shape, cargs[-1]
+        fn = coarse.coarse_scores if counted else coarse.coarse_maps
+        plain = coarse.coarse_scores_plain if counted \
+            else coarse.coarse_maps_plain
+        want = plain(*cargs)
+        own = own_coarse(B, K, N, M)
+        for G in sorted({1, 2, 9, 33, 66, 132, own[0]}):
+            if G > 1 and N < 2 * G:
+                continue
+            chunk = -(-N // G)
+            coarse.coarse_split = lambda *a, s=(-(-N // chunk), chunk): s
+            got = fn(*cargs)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, e) for g, e in zip(
+                got if counted else (got,), want if counted else (want,)))
+            ms = cs._time_ms(lambda: fn(*cargs), args.iters)
+            rows.append({"kernel": "coarse.cu", "case": name, "G": G,
+                         "chunk": chunk, "own": (G, chunk) == own,
+                         "bitwise": same, "ms": ms})
+            mark = " (own)" if rows[-1]["own"] else ""
+            print(f"{name}: G={G} chunk={chunk}{mark} bitwise {same} "
+                  f"{ms:.4f} ms on {card}")
+        coarse.coarse_split = own_coarse
+
+    for name, _, _, det, banks, sizes, lms, thr in cases[:2]:
+        T = det.T_at_level
+        thr_t = torch.tensor(float(thr), device="cuda")
+        for cap in (256, 1024):
+            k, x, y, _, valid, _ = coarse_extract(
+                lms[1], banks[1], T[1], sizes[1], thr_t, cap)
+            wx, wy = _window_origin(banks[0], T[0], sizes[0], k, x, y)
+            rargs = (lms[0], banks[0], T[0], sizes[0], k, wx, wy, valid)
+            want = refine.refine_windows_plain(*rargs)
+            N = banks[0].fx.shape[1]
+            own = own_refine(N)
+            label = (f"{name} window C={cap} N={N} "
+                     f"({int(valid.sum())} live)")
+            for CB, G in sorted({(1, 1), (8, 1), (8, 10), (8, 19),
+                                 (8, 37), own[:2]}):
+                if G > 1 and N < 2 * G:
+                    continue
+                chunk = -(-N // G)
+                refine.refine_split = lambda *a, s=(CB, -(-N // chunk),
+                                                    chunk): s
+                got = refine.refine_windows(*rargs)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, e) for g, e in zip(got, want))
+                ms = cs._time_ms(lambda: refine.refine_windows(*rargs),
+                                 args.iters)
+                rows.append({"kernel": "refine.cu", "case": label,
+                             "CB": CB, "G": G, "chunk": chunk,
+                             "own": (CB, G, chunk) == own,
+                             "bitwise": same, "ms": ms})
+                print(f"{label}: CB={CB} G={G} chunk={chunk}"
+                      f"{' (own)' if rows[-1]['own'] else ''} bitwise "
+                      f"{same} {ms:.4f} ms on {card}")
+            refine.refine_split = own_refine
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    with open(os.path.join(cs.OUT_DIR, "tune_torch_split.json"), "w") as f:
+        json.dump({"card": card, "rows": rows}, f, indent=1)
+    if not all(r["bitwise"] for r in rows):
+        raise SystemExit("a split choice disagrees with the twin")
+
+
+if __name__ == "__main__":
+    main()
