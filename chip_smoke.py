@@ -15,11 +15,13 @@ Phases, each reported on its own line:
    kernels (level maps and map window included) must rise, the B=1 list
    must equal the committed JAX golden, and each frame of the batch must
    equal its own B=1 match;
-5. warm timings from CUDA events: each kernel against its twin, the
+5. warm timings from CUDA events: each kernel against its twin (the
+   frontend at both levels, B=1 and B=8, held bitwise at B=8 too), the
    window route against the map route at the re-run's cap, and the
    end-to-end ms/frame at B=1 and frames/s at B=8;
 6. the dense-bank path: the committed 10,000-template bank on the same
-   frame. Its chain plan; the chain kernel against its twin and against
+   frame. Its chain plan and the kernel's segments (count, longest
+   walk); the chain kernel against its twin (B=1 and B=8) and against
    coarse.cu from scratch, the window at cap 256, the level maps and the
    map-window kernel against their twins, all bitwise at the path's
    shapes; the B=1 match (chain at the coarse level, overflow re-run at a
@@ -339,9 +341,17 @@ def dense_phase(card: str) -> tuple[list, dict]:
         raise AssertionError("the planner declined the 10,000-template bank")
     P = plan.prog_start.numel() - 1
     visits, plain_visits = plan.slots.numel(), int(banks[1].nfeat.sum())
+    segs = plan.segs.cpu().numpy()
+    ss = plan.slot_start.cpu().numpy()
+    walks = segs[:, 3] - segs[:, 2] + ss[segs[:, 1]] - ss[segs[:, 0]]
+    n_seg, longest = len(segs), int(walks.max())
+    longest_t = int((segs[:, 1] - segs[:, 0]).max())
     print(f"dense: chain plan {P} programs, {visits} slot visits against "
           f"{plain_visits} plain ({visits / plain_visits:.4f}), planned "
-          f"and uploaded in {plan_s:.3f} s")
+          f"and uploaded in {plan_s:.3f} s; {n_seg} segments, longest walk "
+          f"{longest} slot visits ({int(segs[0, 3] - segs[0, 2])} start "
+          f"codes) and at most {longest_t} templates, "
+          f"{int(walks.sum())} slot visits in all")
 
     # 2. kernels against their twins, bitwise, at the path's shapes
     lms = _batch_pyramid(torch.from_numpy(scene[None]).to(dev),
@@ -373,8 +383,17 @@ def dense_phase(card: str) -> tuple[list, dict]:
           f"{int(valid.sum())} live, N={N0}")
     cap = 4096
     mr = _map_route_check(lms, banks, sizes, thr, cap, plan)
+    # the chain at B=8, as match_batch gives it eight frames
+    batch = np.stack([_scene({**cfg, "scene_seed": cfg["scene_seed"] + i})
+                      for i in range(BATCH)])
+    lms8 = _batch_pyramid(torch.from_numpy(batch).to(dev), det.T_at_level,
+                          det.pyramid_levels, det.weak_threshold)
+    chain8_args = (lms8[1], plan, pos, rmin)
+    chain8_err = _max_abs_err(zip(chain_scores(*chain8_args),
+                                  chain_scores_plain(*chain8_args)))
+    print(f"K7 chain vs plain at B={BATCH}: max_abs_err {chain8_err}")
     if (chain_err or scratch_err or k3_err or mr["maps_err"]
-            or mr["mr_err"]):
+            or mr["mr_err"] or chain8_err):
         raise AssertionError("a dense-path kernel disagrees")
 
     # 3. the dense path through the kernels
@@ -429,6 +448,17 @@ def dense_phase(card: str) -> tuple[list, dict]:
         print(f"time dense {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f}"
               f" ms ({records[-1]['bound_by']}) on {card}")
+    chain8_ms = _time_ms(lambda: chain_scores(*chain8_args), iters)
+    chain8_plain_ms = _time_ms(lambda: chain_scores_plain(*chain8_args), 2)
+    records.append(_record(
+        chain_scores, "chain.cu", "similarity_pallas.py:572", chain8_err,
+        launches, f"dense B={BATCH}", chain8_ms, chain8_plain_ms,
+        _chain_work(lms8[1], plan, off1.shape[0], M1),
+        f"B={BATCH} K={off1.shape[0]} M={M1}, {visits} slots"))
+    print(f"time dense chain_scores [B={BATCH}]: kernel {chain8_ms:.4f} ms, "
+          f"plain {chain8_plain_ms:.4f} ms, bound "
+          f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}) "
+          f"on {card}")
     scratch_ms = _time_ms(lambda: coarse_scores(lms[1], off1, pos, rmin, M1),
                           iters)
     routes = [_route_ms(lms, banks, sizes, thr, c, plan, iters)
@@ -440,6 +470,9 @@ def dense_phase(card: str) -> tuple[list, dict]:
     print(f"time e2e B=1 1024^2 x 10000 templates: {e2e_ms:.4f} ms/frame "
           f"on {card}")
     report = {"chain_programs": P, "chain_slot_visits": visits,
+              "chain_segments": n_seg, "chain_longest_walk": longest,
+              "chain_longest_templates": longest_t,
+              "chain_segment_visits": int(walks.sum()),
               "plain_slot_visits": plain_visits, "plan_seconds": plan_s,
               "launches": launches, "n_matches_b1": len(got),
               "coarse_from_scratch_ms": scratch_ms, "routes": routes,
@@ -899,6 +932,12 @@ def main() -> None:
          lambda: quant_spread_plain(full[:1], det.weak_threshold, T0),
          "1024^2 T=4", _frontend_work(1, 1024, 1024, 1, 8, T0, False,
                                       False)),
+        (quant_spread, "frontend.cu", "frontend_pallas.py:108", k1_err,
+         lambda: quant_spread(half[:1], det.weak_threshold, T_LEVELS[1]),
+         lambda: quant_spread_plain(half[:1], det.weak_threshold,
+                                    T_LEVELS[1]),
+         "512^2 T=8", _frontend_work(1, 512, 512, 1, 8, T_LEVELS[1], False,
+                                     False)),
         (coarse_scores, "coarse.cu", "similarity_pallas.py:55", k2_err,
          lambda: coarse_scores(*k2_args),
          lambda: coarse_scores_plain(*k2_args),
@@ -927,6 +966,28 @@ def main() -> None:
         print(f"time {fn.__name__} [{shape}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f} ms "
               f"({records[-1]['bound_by']}) on {card}")
+    # the frontend as match_batch runs it: 8 frames, both levels
+    frames8 = torch.from_numpy(batch).to(dev)
+    for lvl, (fr8, T_l) in enumerate(((frames8, T0),
+                                      (pyr_down_u8(frames8), T_LEVELS[1]))):
+        args8 = (fr8, det.weak_threshold, T_l)
+        err8 = _max_abs_err([(quant_spread(*args8),
+                              quant_spread_plain(*args8))])
+        side = fr8.shape[-1]
+        ms8 = _time_ms(lambda: quant_spread(*args8), iters)
+        plain8 = _time_ms(lambda: quant_spread_plain(*args8), 2)
+        records.append(_record(
+            quant_spread, "frontend.cu", "frontend_pallas.py:108", err8,
+            launches, f"flagship B={BATCH}", ms8, plain8,
+            _frontend_work(BATCH, side, side, 1, 8, T_l, False, False),
+            f"B={BATCH} {side}^2 T={T_l}"))
+        print(f"time quant_spread [B={BATCH} {side}^2 T={T_l}]: kernel "
+              f"{ms8:.4f} ms, plain {plain8:.4f} ms, bound "
+              f"{records[-1]['bound_ms']:.4f} ms "
+              f"({records[-1]['bound_by']}), max_abs_err {err8} on {card}")
+        if err8:
+            raise AssertionError(f"frontend at B={BATCH} level {lvl} "
+                                 f"disagrees with its twin")
     routes = [_route_ms(lms, banks, sizes, thr, re_cap, None, iters)]
     _print_routes("flagship", routes, card)
     e2e_ms = _time_ms(lambda: det.match(scene, THRESHOLD), iters)

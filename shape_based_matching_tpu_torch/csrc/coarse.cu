@@ -61,6 +61,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lmword.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -69,30 +71,9 @@ constexpr int TILE = THREADS * CELLS;      // cells per block
 constexpr int LANE_SLOTS = 63;             // slots per packed-lane run
 constexpr int OFF_CHUNK = 16 * LANE_SLOTS; // offsets staged at a time
 
-// Bytes a .. a+3 as one little-endian word, from the two aligned words
-// that cover them.
-__device__ __forceinline__ uint32_t load4(const uint8_t* a) {
-  const uintptr_t u = reinterpret_cast<uintptr_t>(a);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(u & ~uintptr_t{3});
-  return __funnelshift_r(__ldg(w), __ldg(w + 1),
-                         static_cast<uint32_t>(u & 3) * 8);
-}
-
-// The same bytes one at a time, cells j0 + u < M only (zero elsewhere).
-__device__ __forceinline__ uint32_t load4_edge(const uint8_t* a, int live) {
-  uint32_t v = 0;
-#pragma unroll
-  for (int u = 0; u < CELLS; ++u)
-    if (u < live) v |= static_cast<uint32_t>(__ldg(a + u)) << (8 * u);
-  return v;
-}
-
-__device__ __forceinline__ void widen(uint32_t pk, int* acc) {
-  acc[0] += pk & 0xFFu;
-  acc[1] += (pk >> 8) & 0xFFu;
-  acc[2] += (pk >> 16) & 0xFFu;
-  acc[3] += pk >> 24;
-}
+using sbm::load4;
+using sbm::load4_edge;
+using sbm::widen;
 
 // Block sum of c, added to *dst by thread 0 (skipped when zero).
 __device__ __forceinline__ void block_count(int c, int* s_warp, int* dst) {

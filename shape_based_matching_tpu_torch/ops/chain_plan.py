@@ -61,6 +61,9 @@ class ChainPlan(NamedTuple):
     slots: object       # [NS] int32: off (added) or ~off (removed)
     M: int              # cells of the coarse level
     L: int              # offset of the zero tail, n_ori*T*T*M
+    # the CUDA kernel's segments (ops/cuda/chain.py::segment_plan)
+    segs: object = None  # [NSEG, 4] int32: k0, k1, pre_begin, pre_end
+    pre: object = None   # [NP] int32: start codes of the segments
 
 
 def _jax_engages(n_base, n_delta, is_delta, n_slots: int, W: int, M: int,

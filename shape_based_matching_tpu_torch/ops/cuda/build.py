@@ -47,17 +47,20 @@ _F = ctypes.c_float
 
 # C signatures: name -> argtypes (every entry returns the CUDA error code)
 SIGNATURES = {
-    # img, mask, out, quant, B, H, W, T, n_ori, channels, thr_sq, stream
-    # (mask and quant may be null)
-    "sbm_quant_spread": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # img, mask, out, quant, B, H, W, T, RS, n_ori, channels, thr_sq,
+    # stream (mask and quant may be null)
+    "sbm_quant_spread": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _P),
+    # x, y, out, n, stream: frontend.cu's fastAtan2 alone (tests)
+    "sbm_phase_deg": (_P, _P, _P, _I, _P),
     # lmflat, lm_stride, off, pos, rmin, S, cnt, B, K, N, M, G, chunk,
     # stream (pos, rmin and cnt null: the count is off)
     "sbm_coarse_scores": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P),
-    # lmflat, lm_stride, prog_start, slot_start, slots, pos, rmin, S, cnt,
-    # B, P, K, M, stream
-    "sbm_chain_scores": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P),
+    # lmflat, lm_stride, slot_start, slots, segs, pre, pos, rmin, S, cnt,
+    # B, NSEG, K, M, stream
+    "sbm_chain_scores": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _P),
     # Sfull, D, M, W, slot, wx, wy, live, best, raw, B, C, stream
     "sbm_map_refine": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # lmflat, lm_stride, fx, fy, label, fvalid, k, wx, wy, live,

@@ -12,7 +12,9 @@ quantized plane. It replaces the TPU kernel
 as run by ``_quant_spread_batched_impl`` and ``_quant_spread_impl``.
 
 On a CPU tensor the wrapper runs ``quant_spread_plain``; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises. ``frontend_split`` chooses, from the
+shapes alone, how many output rows each one-warp block walks (see
+``csrc/frontend.cu``).
 """
 
 from __future__ import annotations
@@ -23,8 +25,31 @@ from ..gradients import (quantized_orientations_color,
                          quantized_orientations_gray, weak_threshold_sq)
 from ..response import from_i32, spread, to_i32
 from . import build
+from .coarse import SM_COUNT
 
-T_MAX = 16  # the kernel's shared-memory halo is sized for T <= 16
+T_MAX = 16  # the kernel's spread ring holds T <= 16 rows
+VALID_RIGHT = 116  # frontend.cu: a warp writes (VALID_RIGHT - T) & ~3 cols
+ROW_STRIPS = (32, 16, 8, 4)  # rows per block, longest first
+# one-warp blocks that hide a step's latency, 16 an SM (tools/
+# tune_torch_split.py: the fastest strip at the flagship's shapes gives
+# 1,280-2,560 of them)
+FULL_WARPS = 16 * SM_COUNT
+
+
+def out_cols(T: int) -> int:
+    """Output columns of one block of frontend.cu at spread T."""
+    return (VALID_RIGHT - T) & ~3
+
+
+def frontend_split(B: int, H: int, W: int, T: int) -> int:
+    """RS, the output rows a block walks: the longest of ROW_STRIPS whose
+    grid of B * ceil(W / out_cols(T)) * ceil(H / RS) blocks still reaches
+    FULL_WARPS, else the shortest. A strip walks RS + T + 9 image rows, so
+    longer strips waste less on the halo and shorter ones fill the
+    card."""
+    cols = -(-W // out_cols(T))
+    return next((rs for rs in ROW_STRIPS
+                 if B * cols * -(-H // rs) >= FULL_WARPS), ROW_STRIPS[-1])
 
 
 def quant_spread_plain(imgs: torch.Tensor, weak_threshold: float, T: int,
@@ -85,7 +110,8 @@ def quant_spread(imgs: torch.Tensor, weak_threshold: float, T: int,
         build.check(lib.sbm_quant_spread(
             imgs.data_ptr(), None if masks is None else masks.data_ptr(),
             out.data_ptr(), None if quant is None else quant.data_ptr(),
-            B, H, W, T, n_ori, 3 if imgs.dim() == 4 else 1,
+            B, H, W, T, frontend_split(B, H, W, T), n_ori,
+            3 if imgs.dim() == 4 else 1,
             weak_threshold_sq(weak_threshold),
             build.stream_ptr(imgs.device)), "sbm_quant_spread")
         quant_spread.launches += 1
@@ -93,3 +119,18 @@ def quant_spread(imgs: torch.Tensor, weak_threshold: float, T: int,
 
 
 quant_spread.launches = 0
+
+
+def phase_deg_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The frontend kernel's fastAtan2 alone on float32 CUDA tensors (for
+    holding it to ``ops/fastmath.phase_deg`` on the card)."""
+    if (x.device.type != "cuda" or x.dtype != torch.float32
+            or y.dtype != torch.float32 or x.shape != y.shape
+            or y.device != x.device):
+        raise ValueError("x, y: float32 CUDA tensors of one shape")
+    x, y = x.contiguous(), y.contiguous()
+    out = torch.empty_like(x)
+    build.check(build.library().sbm_phase_deg(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+        build.stream_ptr(x.device)), "sbm_phase_deg")
+    return out

@@ -10,7 +10,15 @@
 * The chain route's candidates equal JAX's counted chain kernel (Pallas in
   interpret mode) plus its chain extraction, the negative-threshold quirk
   included.
+* The CUDA kernel's segments (ops/cuda/chain.segment_plan), replayed
+  through chain.cu's loops from the source's constants: every template in
+  exactly one segment, every slot staged and summed once, start codes that
+  rebuild the template before the segment, and a plain replay over the
+  segments equal to chain_scores_plain on the 10,000-template plan.
 """
+
+from collections import Counter
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,13 +40,15 @@ from shape_based_matching_tpu.utils import synthetic as jsyn
 from shape_based_matching_tpu_torch.models.detector import _batch_pyramid
 from shape_based_matching_tpu_torch.ops import similarity as tsim
 from shape_based_matching_tpu_torch.ops.chain_plan import plan_chain
+from shape_based_matching_tpu_torch.ops.cuda import chain as tchain
 from shape_based_matching_tpu_torch.ops.cuda.chain import (
-    chain_scores, plan_to_device)
+    chain_scores, chain_scores_plain, plan_to_device, segment_plan)
 from shape_based_matching_tpu_torch.ops.cuda.coarse import (
     coarse_scores_plain)
 from shape_based_matching_tpu_torch.utils import synthetic as tsyn
 from shape_based_matching_tpu_torch.utils.convert import (
     level_bank_from_numpy, pyramids_to_banks)
+from tests.torch_csrc import constants
 
 T = 8
 
@@ -222,3 +232,131 @@ def test_chain_candidates_equal_jax_counted_chain(dense, threshold, cap):
                               torch.tensor(threshold), cap, chain=plan)
     assert int(want[5]) > 0
     _assert_same_candidates(got, want)
+
+
+@pytest.fixture(scope="module")
+def plan10k():
+    """The 10,000-template bank's plan at the coarse level of a 512^2
+    frame (T=8): 256^2, M=1024."""
+    plan = plan_chain(_np_bank(_committed(10000)), T, (256, 256))
+    assert plan is not None
+    return plan
+
+
+def _replay(plan, segs, pre):
+    """chain.cu's loops over one tile of one frame, per segment: the start
+    codes staged in chunks of STAGE, the own slots staged from the first
+    and restaged at STAGE, each staged run summed in packed runs of at most
+    LANE_SLOTS. Returns {k: (start codes, slot indices summed before k's
+    row)} and the longest packed run."""
+    c = constants("chain.cu")
+    ss = plan.slot_start
+    seen, longest = {}, 0
+    for k0, k1, pb, pe in segs.tolist():
+        start = []
+        for c0 in range(pb, pe, c["STAGE"]):
+            c1 = min(c0 + c["STAGE"], pe)
+            for r0 in range(0, c1 - c0, c["LANE_SLOTS"]):
+                run = pre[c0 + r0:c0 + min(c1 - c0, r0 + c["LANE_SLOTS"])]
+                longest = max(longest, len(run))
+                start += run.tolist()
+        s, c0, c1, walked = ss[k0], ss[k0], ss[k0], []
+        for k in range(k0, k1):
+            while s < ss[k + 1]:
+                if s >= c1:
+                    c0, c1 = s, min(s + c["STAGE"], ss[k1])
+                n = min(ss[k + 1], c1) - s
+                longest = max(longest, min(n, c["LANE_SLOTS"]))
+                walked += range(s, s + n)
+                s += n
+            assert k not in seen  # one segment per template
+            seen[k] = (start, list(walked))
+    return seen, longest
+
+
+def _net(codes):
+    net = Counter()
+    for code in codes:
+        net[~code if code < 0 else code] += -1 if code < 0 else 1
+    assert min(net.values(), default=0) >= 0
+    return +net
+
+
+@pytest.mark.parametrize("Z", [1, 16, 32, 128, 10000])
+def test_segments_cover_the_plan(plan10k, Z):
+    """Every template lies in exactly one segment of at most Z templates
+    inside one program; the segment's start codes rebuild the template
+    before it (the net multiset of the program's signed slots before k0),
+    its own slots are summed once each in order; the grid (tile fastest,
+    then frame, then segment) names every block once; the segments run
+    longest walk first."""
+    c = constants("chain.cu")
+    assert c["TILE"] == c["THREADS"] * c["CELLS"] == 1024
+    assert c["LANE_SLOTS"] * 4 <= 255  # responses are at most 4
+    plan = segment_plan(plan10k, Z)
+    ps, ss, slots = plan.prog_start, plan.slot_start, plan.slots
+    K = len(ss) - 1
+    segs = plan.segs
+    assert segs.dtype == np.int32 and segs.shape[1] == 4
+    seen, longest = _replay(plan, segs, plan.pre)
+    assert sorted(seen) == list(range(K))
+    assert longest <= c["LANE_SLOTS"]
+    prog_of = np.searchsorted(ps, np.arange(K), side="right") - 1
+    for k0, k1, pb, pe in segs.tolist():
+        assert 0 < k1 - k0 <= Z and prog_of[k0] == prog_of[k1 - 1]
+        base = ps[prog_of[k0]]
+        assert (k0 - base) % Z == 0
+        start = seen[k0][0]
+        assert Counter(start) == _net(slots[ss[base]:ss[k0]].tolist())
+        assert min(start, default=0) >= 0 and pe - pb == len(start)
+        for k in range(k0, k1):
+            assert seen[k][1] == list(range(ss[k0], ss[k + 1]))
+    walks = (segs[:, 3] - segs[:, 2] + ss[segs[:, 1]] - ss[segs[:, 0]]
+             + segs[:, 1] - segs[:, 0])
+    assert (np.diff(walks) <= 0).all()
+    B, tiles = 2, -(-plan.M // c["TILE"])
+    blocks = [((x // tiles) // B, (x // tiles) % B, x % tiles)
+              for x in range(tiles * B * len(segs))]
+    assert len(set(blocks)) == len(blocks) == tiles * B * len(segs)
+    if Z >= 126:  # every program in one segment, no start codes
+        assert len(segs) == len(ps) - 1 and (segs[:, 2] == segs[:, 3]).all()
+
+
+@pytest.mark.parametrize("Z", [1, 32])
+def test_segment_replay_equals_plain(plan10k, Z):
+    """The kernel's arithmetic over the segments in plain torch -- each
+    segment's start row from its start codes, then a running sum over its
+    own templates -- equals chain_scores_plain on the 10,000-template plan,
+    two random frames, in scores and counts."""
+    plan = segment_plan(plan10k, Z)
+    rng = np.random.RandomState(16)
+    B, M = 2, plan.M
+    lmflat = torch.from_numpy(np.concatenate([
+        rng.choice(np.array([0, 0, 3, 4], np.uint8), (B, plan.L)),
+        np.zeros((B, M), np.uint8)], axis=1))
+    windows = lmflat.unfold(1, M, 1)  # [B, L + 1, M] view
+
+    def signed_sum(codes):
+        codes = torch.as_tensor(np.asarray(codes, np.int64))
+        neg = codes < 0
+        sign = (1 - 2 * neg.to(torch.int32))[None, :, None]
+        return (windows[:, torch.where(neg, ~codes, codes)].to(torch.int32)
+                * sign).sum(1, dtype=torch.int32)
+
+    K = len(plan.slot_start) - 1
+    S = torch.zeros((B, K, M), dtype=torch.int32)
+    ss = plan.slot_start
+    for k0, k1, pb, pe in plan.segs.tolist():
+        acc = signed_sum(plan.pre[pb:pe])
+        for k in range(k0, k1):
+            acc = acc + signed_sum(plan.slots[ss[k]:ss[k + 1]])
+            S[:, k] = acc
+    W = H = 256 // T
+    bank = level_bank_from_numpy(_committed(10000))
+    pos = tsim._positions(bank, T, W, H)
+    rmin, _ = tsim._rmin_for_threshold(bank.nfeat, torch.tensor(60.0))
+    want = chain_scores_plain(lmflat, plan_to_device(plan10k, "cpu"), pos,
+                              rmin)
+    assert torch.equal(S, want[0])
+    cnt = tchain.count_live(S, pos, rmin)
+    assert torch.equal(cnt, want[1]) and int(cnt.sum()) > 0

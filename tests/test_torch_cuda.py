@@ -15,13 +15,15 @@ import pytest
 import torch
 
 from shape_based_matching_tpu_torch import Detector
-from shape_based_matching_tpu_torch.ops.chain_plan import plan_chain
+from shape_based_matching_tpu_torch.ops.chain_plan import (
+    ChainPlan, plan_chain)
 from shape_based_matching_tpu_torch.ops.cuda.chain import (
-    chain_scores, chain_scores_plain, plan_to_device)
+    chain_scores, chain_scores_plain, plan_to_device, segment_plan)
 from shape_based_matching_tpu_torch.ops.cuda.coarse import (
     coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
 from shape_based_matching_tpu_torch.ops.cuda.frontend import (
-    quant_spread, quant_spread_plain)
+    phase_deg_kernel, quant_spread, quant_spread_plain)
+from shape_based_matching_tpu_torch.ops.fastmath import phase_deg
 from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
     map_refine, map_refine_plain)
 from shape_based_matching_tpu_torch.ops.cuda.refine import (
@@ -469,3 +471,200 @@ def test_refine_kernel_ties_take_first_max(dev, N):
     best, raw = _refine_case(lmflat, bank, 4, (128, 128), k, wx, wy, live)
     assert int(best.max()) == 0
     assert torch.equal(raw[live], torch.full_like(raw[live], 2 * N))
+
+
+def _chain_case(lmflat, plan, threshold_frac=0.5):
+    """chain_scores against its twin on a device plan, bitwise; returns
+    the scores."""
+    K = plan.slot_start.numel() - 1
+    dev = lmflat.device
+    rng = np.random.RandomState(K)
+    pos = torch.from_numpy(rng.randint(0, plan.M + 2, K).astype(np.int32)
+                           ).to(dev)
+    got = chain_scores(lmflat, plan, pos, torch.zeros(K, dtype=torch.int32,
+                                                      device=dev))
+    torch.cuda.synchronize()
+    rmin = (got[0].amax(dim=(0, 2)) * threshold_frac).to(torch.int32)
+    got = chain_scores(lmflat, plan, pos, rmin)
+    torch.cuda.synchronize()
+    want = chain_scores_plain(lmflat, plan, pos, rmin)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    assert int(got[1].sum()) > 0
+    return got[0]
+
+
+def _hand_plan(rng, M, L, programs, empty_run=0, tail=0.1, base=None):
+    """A chain plan written by hand: programs of the given template counts;
+    a base adds 20-40 offsets, or `base` of them (a share `tail` on the
+    zero tail, offset L),
+    a delta adds and removes a few, and every program after the first
+    holds a run of `empty_run` empty deltas (duplicates)."""
+    prog_start, slot_start, slots = [], [], []
+    k = 0
+    for p, n in enumerate(programs):
+        prog_start.append(k)
+        cur = []
+        for t in range(n):
+            slot_start.append(len(slots))
+            if t == 0:
+                new = [L if rng.rand() < tail else int(rng.randint(0, L))
+                       for _ in range(base or int(rng.randint(20, 41)))]
+                cur = list(new)
+            elif p and 1 <= t <= empty_run:
+                new = []
+            else:
+                adds = [L if rng.rand() < tail else int(rng.randint(0, L))
+                        for _ in range(int(rng.randint(0, 4)))]
+                subs = [cur.pop(int(rng.randint(len(cur))))
+                        for _ in range(min(len(cur), int(rng.randint(0, 4))))]
+                cur += adds
+                new = adds + [~o for o in subs]
+            slots.extend(new)
+            k += 1
+    prog_start.append(k)
+    slot_start.append(len(slots))
+    return ChainPlan(np.asarray(prog_start, np.int32),
+                     np.asarray(slot_start, np.int32),
+                     np.asarray(slots, np.int32), M, L)
+
+
+@pytest.mark.parametrize("Z", [1, 16, 32, 10000])
+def test_chain_kernel_10k_plan_segments(dev, Z):
+    """The committed 10,000-template bank at the dense path's coarse
+    level (512^2, T=8, M=4096; its longest program walks 126 templates),
+    with segments of 1 template, 16, 32 and whole programs."""
+    pyr = synthetic.load_bank_cache(synthetic.bank_cache_path(10000, 63))
+    bank = pyramids_to_banks(pyr, 2)[-1]
+    plan = plan_chain(LevelBank(*(f.numpy() for f in bank)), 8, (512, 512))
+    assert int(np.diff(plan.prog_start).max()) == 126
+    plan = plan_to_device(segment_plan(plan, Z), dev)
+    lmflat = _lmflat(np.random.RandomState(Z), 1, 8, 512, 512, dev)
+    _chain_case(lmflat, plan)
+
+
+@pytest.mark.parametrize("B", [2, 3])
+@pytest.mark.parametrize("Z", [1, 5, 900])
+def test_chain_kernel_odd_m_empty_runs_tail(dev, B, Z):
+    """A hand-made plan at M = 29 x 37 = 1073 (odd lmflat length, so frames
+    after the first start unaligned and rows are not 16-byte aligned):
+    runs of 12 empty deltas, slots on the zero tail, programs of 1 to 900
+    templates (that one's 2,700 slots pass the 2,048 codes staged at a
+    time)."""
+    rng = np.random.RandomState(B * Z)
+    M, L = 1073, 16 * 64 * 1073
+    plan = _hand_plan(rng, M, L, [1, 40, 900, 7, 126], empty_run=12)
+    assert plan.slot_start[941] - plan.slot_start[41] > 2048
+    lmflat = _lmflat(rng, B, 8, 232, 296, dev, n_ori=16)
+    assert lmflat.shape[1] == L + M and lmflat.shape[1] % 2 == 1
+    _chain_case(lmflat, plan_to_device(segment_plan(plan, Z), dev))
+
+
+@pytest.mark.parametrize("Z", [1, 7])
+def test_chain_kernel_wide_start_rows(dev, Z):
+    """Bases of 2,100 offsets, as a wide bank's coarse level has them:
+    every start row after a base holds more codes than the 2,048 staged
+    at a time."""
+    rng = np.random.RandomState(Z + 2100)
+    M, L = 1073, 16 * 64 * 1073
+    plan = segment_plan(_hand_plan(rng, M, L, [30, 9], base=2100), Z)
+    assert int((plan.segs[:, 3] - plan.segs[:, 2]).max()) > 2048
+    lmflat = _lmflat(rng, 2, 8, 232, 296, dev, n_ori=16)
+    _chain_case(lmflat, plan_to_device(plan, dev))
+
+
+def test_chain_kernel_sliced_frames(dev):
+    """Frames 1 and 2 of an odd-length batch, sliced as lmflat[b:b+1]:
+    unaligned data_ptr, and the last frame ends the storage."""
+    rng = np.random.RandomState(7)
+    M, L = 1073, 16 * 64 * 1073
+    plan = plan_to_device(segment_plan(_hand_plan(
+        rng, M, L, [60, 3, 90], empty_run=5), 8), dev)
+    lmflat = _lmflat(rng, 3, 8, 232, 296, dev, n_ori=16)
+    for b in (1, 2):
+        frame = lmflat[b:b + 1]
+        assert frame.data_ptr() % 4 != 0
+        _chain_case(frame, plan)
+
+
+@pytest.mark.parametrize("Z", [1, 64])
+def test_chain_kernel_saturated(dev, Z):
+    """Every lmflat byte 4: each packed run of 63 start codes or slots
+    holds 252 a lane, and a program of 64 bases' worth of adds reaches
+    past it."""
+    rng = np.random.RandomState(Z)
+    M, L = 4096, 8 * 64 * 4096
+    plan = _hand_plan(rng, M, L, [64, 200, 2], tail=0.0)
+    lmflat = _lmflat(rng, 2, 8, 512, 512, dev, fill=4)
+    S = _chain_case(lmflat, plan_to_device(segment_plan(plan, Z), dev), 1.0)
+    assert int(S.max()) >= 4 * 40
+
+
+@pytest.mark.parametrize("T", range(1, 17))
+def test_frontend_kernel_edge_sizes(dev, T):
+    """Widths and heights of 1, 3, 31, 33, 65, 127 and 129 (frames smaller
+    than one block, one lane, and just past a block's output columns) at
+    every T: gray 8 orientations, and masked color 16 with the quantized
+    plane."""
+    rng = np.random.RandomState(T)
+    sides = (1, 3, 31, 33, 65, 127, 129)
+    for h in sides:
+        for w in sides:
+            gray = rng.randint(0, 256, (2, h, w)).astype(np.uint8)
+            gray[1] = (np.add.outer(np.arange(h) * 7, np.arange(w) * 3)
+                       % 256).astype(np.uint8)
+            frames = torch.from_numpy(gray).to(dev)
+            got = quant_spread(frames, 10.0, T)
+            torch.cuda.synchronize()
+            assert torch.equal(got, quant_spread_plain(frames, 10.0, T)), \
+                (h, w)
+            if (h, w) not in ((3, 129), (129, 3), (33, 65), (127, 127)):
+                continue
+            color = torch.from_numpy(np.ascontiguousarray(np.stack(
+                [gray, np.roll(gray, 1, axis=2), 255 - gray], axis=1))
+            ).to(dev)
+            masks = torch.from_numpy(((rng.rand(2, h, w) > 0.25) * 255)
+                                     .astype(np.uint8)).to(dev)
+            got = quant_spread(color, 10.0, T, 16, masks, True)
+            torch.cuda.synchronize()
+            want = quant_spread_plain(color, 10.0, T, 16, masks, True)
+            for g, e in zip(got, want):
+                assert torch.equal(to_i32(g), to_i32(e)), (h, w)
+
+
+@pytest.mark.parametrize("side,T", [(1024, 4), (512, 8)])
+@pytest.mark.parametrize("mode", ["gray8", "masked_color16_quant"])
+def test_frontend_kernel_batch8(dev, side, T, mode):
+    """B=8 at the flagship batch's level sizes (the strip the wrapper
+    picks at B=8 differs from B=1's)."""
+    rng = np.random.RandomState(side + T)
+    gray = np.stack([synthetic.synthetic_scene(
+        side, side, synthetic.synthetic_shape_image(256, 0), n_instances=2,
+        seed=s) for s in range(8)])
+    gray[::3] = rng.randint(0, 256, gray[::3].shape).astype(np.uint8)
+    if mode == "gray8":
+        frames = torch.from_numpy(gray).to(dev)
+        assert torch.equal(quant_spread(frames, 30.0, T),
+                           quant_spread_plain(frames, 30.0, T))
+        return
+    color = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [gray, np.roll(gray, 1, axis=2), 255 - gray], axis=1))).to(dev)
+    masks = torch.from_numpy(((rng.rand(8, side, side) > 0.25) * 255)
+                             .astype(np.uint8)).to(dev)
+    got = quant_spread(color, 30.0, T, 16, masks, True)
+    torch.cuda.synchronize()
+    for g, e in zip(got, quant_spread_plain(color, 30.0, T, 16, masks,
+                                            True)):
+        assert torch.equal(to_i32(g), to_i32(e))
+
+
+def test_frontend_phase_every_integer_gradient(dev):
+    """The kernel's fastAtan2 (its division without the IEEE slow path)
+    equals the plain float32 phase_deg bit for bit on every integer
+    (dx, dy) in [-1020, 1020]^2, the full range of 3x3 Sobel on uint8."""
+    r = torch.arange(-1020, 1021, dtype=torch.float32, device=dev)
+    dx, dy = (a.reshape(-1) for a in torch.meshgrid(r, r, indexing="ij"))
+    got = phase_deg_kernel(dx, dy)
+    torch.cuda.synchronize()
+    want = phase_deg(dx.cpu(), dy.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

@@ -7,7 +7,10 @@ Pallas frontend kernel run in interpret mode, in every mode: gray or
 color, 8 or 16 orientations, masked, with the quantized plane. The
 16-orientation pieces are also held to the compiled C++ experiment's
 goldens (tests/goldens/kern16_*). Inputs are numpy arrays from fixed
-seeds, handed to both packages; tolerance is exact equality.
+seeds, handed to both packages; tolerance is exact equality. The CUDA
+kernel's tile cover (ops/cuda/frontend.frontend_split and the source's
+constants) is replayed here: every output pixel written once, every read
+inside the frame.
 """
 
 import jax
@@ -24,8 +27,10 @@ from shape_based_matching_tpu.ops.pallas.frontend_pallas import (
     quant_spread_pallas)
 from shape_based_matching_tpu_torch.ops import fastmath, filters, gradients
 from shape_based_matching_tpu_torch.ops import response
+from shape_based_matching_tpu_torch.ops.cuda import frontend as tfront
 from shape_based_matching_tpu_torch.ops.cuda.frontend import (
     quant_spread, quant_spread_plain)
+from tests.torch_csrc import constants
 from .golden_utils import load_mat
 
 
@@ -235,3 +240,78 @@ def test_pyr_down_planar_color_equals_jax():
     got = filters.pyr_down_u8(_planar(img)[0]).permute(1, 2, 0)
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jfl.pyr_down_u8(jnp.asarray(img))))
+
+
+_SIDES = (1, 3, 31, 33, 65, 127, 129)
+
+
+def _cover(B, H, W, T):
+    """frontend.cu's grid and loops for one launch: per output pixel the
+    number of stores, and every image/mask index the kernel reads."""
+    c = constants("frontend.cu")
+    assert c["WIN"] == c["LANES"] * c["CPT"] == 128
+    assert c["VALID_RIGHT"] == tfront.VALID_RIGHT and c["T_MAX"] == 16
+    RS = tfront.frontend_split(B, H, W, T)
+    tw = tfront.out_cols(T)
+    # window columns: the blur holds from 3, Sobel from 4, the vote from 5
+    # up to 122 (WIN - 6), and the last output column's spread reads the
+    # vote T - 1 columns to its right
+    assert c["LEFT"] >= 5
+    assert (c["LEFT"] + tw - 1) + (T - 1) <= c["WIN"] - 6
+    assert tw % c["CPT"] == 0 and c["LEFT"] % c["CPT"] == 0
+    writes = np.zeros((B, H, W), np.int64)
+    lanes = np.arange(c["LANES"])
+    for b in range(B):
+        for bx in range(-(-W // tw)):
+            cw = bx * tw - c["LEFT"]
+            x0 = cw + lanes * c["CPT"]
+            xs = x0[:, None] + np.arange(c["CPT"])[None]
+            full = (x0 >= 0) & (x0 + c["CPT"] <= W)
+            cols = np.where(full[:, None], xs, np.clip(xs, 0, W - 1))
+            assert cols.min() >= 0 and cols.max() < W  # reads stay in rows
+            if cw < 0:  # column 0 lives in the lane the edge fix reads
+                assert xs[(-cw) >> 2, (-cw) & 3] == 0
+            if cw + c["WIN"] > W:
+                assert xs[(W - 1 - cw) >> 2, (W - 1 - cw) & 3] == W - 1
+            out = ((lanes >= c["LEFT"] // c["CPT"])
+                   & (lanes < (c["LEFT"] + tw) // c["CPT"]) & (x0 < W))
+            for by in range(-(-H // RS)):
+                y0 = by * RS
+                o_end = min(y0 + RS, H)
+                rows = np.clip(np.arange(y0 - 5, o_end + T + 5), 0, H - 1)
+                assert rows.min() >= 0 and rows.max() < H
+                for x in xs[out].ravel():
+                    if x < W:
+                        writes[b, y0:o_end, x] += 1
+    return writes, RS
+
+
+@pytest.mark.parametrize("T", range(1, 17))
+def test_frontend_tile_cover(T):
+    """Every output pixel is stored exactly once, and every image and mask
+    read (image rows y0 - 5 .. o_end + T + 4, clamped; word loads only
+    where all 4 columns lie in the row) stays inside the frame, at widths
+    and heights of 1 .. 129 and at B = 8."""
+    for H in _SIDES:
+        for W in _SIDES:
+            writes, _ = _cover(1, H, W, T)
+            assert (writes == 1).all(), (H, W)
+    writes, _ = _cover(8, 65, 129, T)
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("B,side,T", [(1, 512, 8), (1, 1024, 4),
+                                      (8, 512, 8), (8, 1024, 4)])
+def test_frontend_split_fills_the_card(B, side, T):
+    """The flagship's levels: at least 2 one-warp blocks an SM at 512^2 and
+    B=1, the longest strip that reaches FULL_WARPS otherwise."""
+    RS = tfront.frontend_split(B, side, side, T)
+    blocks = B * -(-side // tfront.out_cols(T)) * -(-side // RS)
+    assert blocks >= 2 * tfront.SM_COUNT
+    assert RS in tfront.ROW_STRIPS
+    if RS != tfront.ROW_STRIPS[-1]:
+        assert blocks >= tfront.FULL_WARPS
+    if RS != tfront.ROW_STRIPS[0]:
+        longer = tfront.ROW_STRIPS[tfront.ROW_STRIPS.index(RS) - 1]
+        assert B * -(-side // tfront.out_cols(T)) * -(-side // longer) \
+            < tfront.FULL_WARPS

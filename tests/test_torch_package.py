@@ -88,5 +88,5 @@ def test_library_name_follows_sources():
     assert path.startswith(build.BUILD_DIR)
     assert path == build.library_path()
     assert sorted(os.path.basename(s) for s in build._sources()) == [
-        "argmax.cuh", "chain.cu", "coarse.cu", "frontend.cu",
+        "argmax.cuh", "chain.cu", "coarse.cu", "frontend.cu", "lmword.cuh",
         "map_refine.cu", "refine.cu"]
