@@ -8,11 +8,15 @@ Phases, each reported on its own line:
 3. each kernel of the flagship path against its plain PyTorch twin on the
    card, bitwise, at the path's shapes (1024x1024 frames, the committed
    1000-template x 63-feature rotation bank, T=(4, 8)), the level maps
-   and the map-window kernel at the shapes of the frame's overflow re-run
-   (cap 1024, map route);
+   and the map refine step (kernel 9: window origin, window, first max,
+   score and threshold in one launch; every output of every candidate,
+   a NaN score against a NaN) at the shapes of the frame's overflow
+   re-run (cap 1024, map route), where ``refine_from_maps`` must be one
+   launch (its counter; torch.profiler's device kernels where it records
+   them);
 4. the flagship path: ``Detector(device="cuda")`` matches the flagship
    frame (B=1) and a batch of 8 frames; the launch counters of its
-   kernels (level maps and map window included) must rise, the B=1 list
+   kernels (level maps and map refine included) must rise, the B=1 list
    must equal the committed JAX golden, and each frame of the batch must
    equal its own B=1 match;
 5. warm timings from CUDA events: each kernel against its twin (the
@@ -23,10 +27,10 @@ Phases, each reported on its own line:
    frame. Its chain plan and the kernel's segments (count, longest
    walk); the chain kernel against its twin (B=1 and B=8) and against
    coarse.cu from scratch, the window at cap 256, the level maps and the
-   map-window kernel against their twins, all bitwise at the path's
+   map refine step against their twins, all bitwise at the path's
    shapes; the B=1 match (chain at the coarse level, overflow re-run at a
    cap of 4096 through the map route) must equal its JAX golden and raise
-   the counters of the chain, level-map and map-window kernels; timings
+   the counters of the chain, level-map and map refine kernels; timings
    of each kernel against its twin, the chain against coarse.cu, the
    window route against the map route at caps 1024, 4096 and 16384, and
    end to end at B=1;
@@ -45,7 +49,7 @@ Phases, each reported on its own line:
    the experiment's frame), the counters of its kernels must rise, and
    the match is timed (mean of 10 warm calls between CUDA events). Where
    the frame overflows the cap of 256, the re-run's level-0 kernels (the
-   window at its cap, or the level maps and the map window) are held
+   window at its cap, or the level maps and the map refine step) are held
    against their twins and timed too.
 
 Every kernel record carries its bound: the larger of the bytes it must
@@ -176,12 +180,39 @@ def _refine_work(lmflat, bank, k, live):
     return nbytes, feats * 256 + n * 256
 
 
-def _map_refine_work(Sfull, live):
-    """Map window: 256 int32 map cells per live candidate (at most all
-    maps), 21 bytes of arguments and results per candidate; 256 compares
-    per live candidate."""
-    n = int(live.sum())
-    return min(Sfull.numel() * 4, n * 1024) + live.numel() * 21, n * 256
+def _map_refine_work(mr_args: tuple):
+    """The map route's refine step: per candidate its k, x, y, valid, its
+    template's slot and three bank words (29 bytes) and five results (17
+    bytes), and the threshold; the map cells that the live windows cover,
+    each once (neighbouring windows share cells). 256 compares per live
+    candidate, about 20 operations of origin and score epilogue per
+    candidate."""
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        window_cells)
+
+    Sfull, slot_of_k, width, height, _, T, size_wh, k, x, y, valid, _ = \
+        mr_args
+    _, _, live, idx = window_cells(Sfull, slot_of_k, width, height, T,
+                                   size_wh, k, x, y, valid)
+    B, D, M = Sfull.shape
+    frame = torch.arange(B, device=idx.device)[:, None, None] * (D * M)
+    cells = torch.unique((idx + frame)[live]).numel()
+    return (cells * 4 + k.numel() * 46 + 4,
+            int(live.sum()) * 256 + k.numel() * 20)
+
+
+def _refine_err(got, want) -> float:
+    """max_abs_err of a refine step's (k, x, y, score, valid) against its
+    twin's: the integers exactly; the score bit for bit where neither is
+    NaN, NaN where the other is (inf where that fails)."""
+    err = _max_abs_err([(g, w) for i, (g, w) in enumerate(zip(got, want))
+                        if i != 3])
+    gs, ws = got[3], want[3]
+    nan = torch.isnan(gs)
+    if not torch.equal(nan, torch.isnan(ws)) or not torch.equal(
+            gs[~nan].view(torch.int32), ws[~nan].view(torch.int32)):
+        return float("inf")
+    return float(err)
 
 
 def _chain_work(lmflat, plan, K, M):
@@ -224,8 +255,8 @@ def _map_route_check(lms: tuple, banks: list, sizes: list, thr, cap: int,
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
         map_refine, map_refine_plain)
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _D_BUCKETS, _flat_offsets, _window_origin, coarse_extract,
-        distinct_templates, gather_bank)
+        _D_BUCKETS, _flat_offsets, coarse_extract, distinct_templates,
+        gather_bank)
 
     k, x, y, _, valid, n_above = coarse_extract(
         lms[1], banks[1], T_LEVELS[1], sizes[1], thr, cap, plan, n_ori)
@@ -240,22 +271,60 @@ def _map_route_check(lms: tuple, banks: list, sizes: list, thr, cap: int,
     maps_args = (lms[0], off0, M0)
     maps = coarse_maps(*maps_args)
     maps_err = _max_abs_err([(maps, coarse_maps_plain(*maps_args))])
-    wx, wy = _window_origin(banks[0], T0, sizes[0], k, x, y)
-    slot = slot_of_k[k]
-    live = valid & (slot >= 0)
-    mr_args = (maps, W0, slot, wx, wy, live)
-    mr_err = _max_abs_err(zip(map_refine(*mr_args),
-                              map_refine_plain(*mr_args)))
+    b0 = banks[0]
+    mr_args = (maps, slot_of_k, b0.width, b0.height, b0.nfeat, T0, sizes[0],
+               k, x, y, valid, thr)
+    mr_err = _refine_err(map_refine(*mr_args), map_refine_plain(*mr_args))
+    live = valid & (slot_of_k[k] >= 0)
     shape = (f"D={D} ({n} distinct of {min(int(n_above[0]), cap)} "
              f"candidates) N={off0.shape[1]} M={M0}")
     print(f"K4 level maps vs plain at cap {cap}: max_abs_err {maps_err}, "
           f"{shape}")
-    print(f"K9 map refine vs plain at cap {cap}: max_abs_err {mr_err}, "
-          f"C={cap}, {int(live.sum())} live")
+    print(f"K9 map refine vs plain at cap {cap}: max_abs_err {mr_err} "
+          f"(k, x, y, score bits, valid of every candidate), C={cap}, "
+          f"{int(live.sum())} live")
+    device_ms = _one_launch(mr_args, b0)
     return {"maps_err": maps_err, "mr_err": mr_err, "D": D,
+            "mr_device_ms": device_ms,
             "n_distinct": n, "n_above": int(n_above[0]),
             "maps_args": maps_args, "mr_args": mr_args,
+            "mr_work": _map_refine_work(mr_args),
             "maps_shape": shape, "mr_shape": f"C={cap}, D={D}"}
+
+
+def _one_launch(mr_args: tuple, bank) -> float | None:
+    """refine_from_maps on the map route's arguments is one launch of
+    kernel 9 a call: its counter rises by one a call, and torch.profiler
+    sees no device kernel but kernel 9, at most one a call. Returns the
+    kernel's mean device time in ms from the profiler (None where it
+    records no device work: not measured). Raises otherwise."""
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        refine_from_maps)
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_kernels)
+
+    Sfull, slot_of_k, _, _, _, *rest = mr_args
+    before = map_refine.launches
+    kern = device_kernels(
+        lambda: refine_from_maps(Sfull, slot_of_k, bank, *rest))
+    if map_refine.launches != before + 1 + CALLS:
+        raise AssertionError("refine_from_maps did not launch kernel 9 once "
+                             "a call")
+    names = sorted({name for name, _ in kern})
+    # the profiler may miss a kernel at the edge of its window (seen: 19 of
+    # 20), never invent one: at most one a call, all of them kernel 9
+    if len(kern) > CALLS or len(names) > 1 or (
+            names and "map_refine_kernel" not in names[0]):
+        raise AssertionError(f"refine_from_maps ran {len(kern)} device "
+                             f"kernels in {CALLS} calls: {names}")
+    device_ms = sum(ms for _, ms in kern) / len(kern) if kern else None
+    print(f"refine_from_maps: one launch of kernel 9 a call (counter); "
+          f"device kernels a call (torch.profiler): "
+          f"{names if kern else 'not measured'}, device time "
+          f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'}")
+    return device_ms
 
 
 def _route_ms(lms: tuple, banks: list, sizes: list, thr, cap: int, plan,
@@ -296,6 +365,14 @@ def _record(fn, src: str, replaces: str, err: int, launches: dict,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _add_device_ms(records: list, mr: dict) -> None:
+    """Kernel 9's records also carry its device time from the profiler
+    (``_one_launch``; the queued call time ``ms`` includes the host's)."""
+    for r in records:
+        if r["name"] == "map_refine":
+            r["device_ms"] = mr["mr_device_ms"]
+
+
 def dense_phase(card: str) -> tuple[list, dict]:
     """Phase 6: the dense 10,000-template bank. Returns the kernels'
     records and the phase's report."""
@@ -313,8 +390,8 @@ def dense_phase(card: str) -> tuple[list, dict]:
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _flat_offsets, _positions, _rmin_for_threshold, _window_origin,
-        coarse_extract)
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
     from shape_based_matching_tpu_torch.utils.synthetic import (
         load_bank_cache)
 
@@ -374,7 +451,8 @@ def dense_phase(card: str) -> tuple[list, dict]:
           f"{int(cnt.sum())}")
     k, x, y, _, valid, _ = coarse_extract(lms[1], banks[1], T1, sizes[1],
                                           thr, 256, plan)
-    wx, wy = _window_origin(banks[0], T_LEVELS[0], sizes[0], k, x, y)
+    wx, wy = window_origin(banks[0].width, banks[0].height,
+                           T_LEVELS[0], sizes[0], k, x, y)
     k3_args = (lms[0], banks[0], T_LEVELS[0], sizes[0], k, wx, wy, valid)
     k3_err = _max_abs_err(zip(refine_windows(*k3_args),
                               refine_windows_plain(*k3_args)))
@@ -434,10 +512,10 @@ def dense_phase(card: str) -> tuple[list, dict]:
          mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
          lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
          _coarse_work(*mr["maps_args"], counted=False)),
-        (map_refine, "map_refine.cu", "refine_pallas.py:121", mr["mr_err"],
+        (map_refine, "map_refine.cu", "refine_pallas.py:154", mr["mr_err"],
          lambda: map_refine(*mr["mr_args"]),
          lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
-         _map_refine_work(mr["mr_args"][0], mr["mr_args"][5])),
+         mr["mr_work"]),
     )
     records = []
     for fn, src, replaces, err, kern, plain, shape, work in table:
@@ -448,6 +526,7 @@ def dense_phase(card: str) -> tuple[list, dict]:
         print(f"time dense {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f}"
               f" ms ({records[-1]['bound_by']}) on {card}")
+    _add_device_ms(records, mr)
     chain8_ms = _time_ms(lambda: chain_scores(*chain8_args), iters)
     chain8_plain_ms = _time_ms(lambda: chain_scores_plain(*chain8_args), 2)
     records.append(_record(
@@ -633,8 +712,8 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     from shape_based_matching_tpu_torch.ops.filters import (
         pyr_down_u8, resize_nearest)
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _flat_offsets, _positions, _rmin_for_threshold, _window_origin,
-        coarse_extract)
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
 
     kwargs, cid, pyramids, frame, mask, threshold, check = _mode_path(name)
     dev = torch.device(DEVICE)
@@ -672,7 +751,8 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     k2_err = _max_abs_err(zip((S, cnt), coarse_scores_plain(*k2_args)))
     k, x, y, _, valid, n_above = coarse_extract(
         lms[1], banks[1], T1, sizes[1], thr, 256, None, n_ori)
-    wx, wy = _window_origin(banks[0], T[0], sizes[0], k, x, y)
+    wx, wy = window_origin(banks[0].width, banks[0].height,
+                           T[0], sizes[0], k, x, y)
     k3_args = (lms[0], banks[0], T[0], sizes[0], k, wx, wy, valid, n_ori)
     k3_err = _max_abs_err(zip(refine_windows(*k3_args),
                               refine_windows_plain(*k3_args[:-1])))
@@ -723,14 +803,15 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
                  lambda: coarse_maps_plain(*mr["maps_args"]),
                  mr["maps_shape"],
                  _coarse_work(*mr["maps_args"], counted=False)),
-                (map_refine, "map_refine.cu", "refine_pallas.py:121",
+                (map_refine, "map_refine.cu", "refine_pallas.py:154",
                  mr["mr_err"], lambda: map_refine(*mr["mr_args"]),
                  lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
-                 _map_refine_work(mr["mr_args"][0], mr["mr_args"][5])))
+                 mr["mr_work"]))
         else:
             rk, rx, ry, _, rvalid, _ = coarse_extract(
                 lms[1], banks[1], T1, sizes[1], thr, re_cap, None, n_ori)
-            rwx, rwy = _window_origin(banks[0], T[0], sizes[0], rk, rx, ry)
+            rwx, rwy = window_origin(banks[0].width, banks[0].height,
+                                     T[0], sizes[0], rk, rx, ry)
             re_args = (lms[0], banks[0], T[0], sizes[0], rk, rwx, rwy,
                        rvalid, n_ori)
             rerun = ((refine_windows, "refine.cu", "refine_pallas.py:67",
@@ -774,6 +855,8 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
               f"plain {plain_ms:.4f} ms, bound "
               f"{records[-1]['bound_ms']:.4f} ms "
               f"({records[-1]['bound_by']}) on {card}")
+    if routes.get("maps") and rerun:
+        _add_device_ms(records, mr)
     print(f"time e2e {name} B=1 ({mode}, {len(pyramids)} templates, "
           f"{frame.shape[1]}x{frame.shape[0]}): {e2e_ms:.4f} ms/frame on "
           f"{card}")
@@ -802,8 +885,8 @@ def main() -> None:
         refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _flat_offsets, _positions, _rmin_for_threshold, _window_origin,
-        coarse_extract)
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
     from shape_based_matching_tpu_torch.utils.synthetic import (
         load_bank_cache, synthetic_scene, synthetic_shape_image)
 
@@ -877,7 +960,8 @@ def main() -> None:
     k, x, y, _, valid, n_above = coarse_extract(
         lms[1], banks[1], T1, sizes[1], thr, 256)
     T0 = T_LEVELS[0]
-    wx, wy = _window_origin(banks[0], T0, sizes[0], k, x, y)
+    wx, wy = window_origin(banks[0].width, banks[0].height,
+                           T0, sizes[0], k, x, y)
     k3_args = (lms[0], banks[0], T0, sizes[0], k, wx, wy, valid)
     k3_err = _max_abs_err(zip(refine_windows(*k3_args),
                               refine_windows_plain(*k3_args)))
@@ -952,10 +1036,10 @@ def main() -> None:
          mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
          lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
          _coarse_work(*mr["maps_args"], counted=False)),
-        (map_refine, "map_refine.cu", "refine_pallas.py:121", mr["mr_err"],
+        (map_refine, "map_refine.cu", "refine_pallas.py:154", mr["mr_err"],
          lambda: map_refine(*mr["mr_args"]),
          lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
-         _map_refine_work(mr["mr_args"][0], mr["mr_args"][5])),
+         mr["mr_work"]),
     )
     records = []
     for fn, src, replaces, err, kern, plain, shape, work in table:
@@ -966,6 +1050,7 @@ def main() -> None:
         print(f"time {fn.__name__} [{shape}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f} ms "
               f"({records[-1]['bound_by']}) on {card}")
+    _add_device_ms(records, mr)
     # the frontend as match_batch runs it: 8 frames, both levels
     frames8 = torch.from_numpy(batch).to(dev)
     for lvl, (fr8, T_l) in enumerate(((frames8, T0),

@@ -1,6 +1,6 @@
 // First-max argmax over a 256-thread block, one value per thread: the
 // largest value wins, ties go to the lower index (a strict > scan, as the
-// reference's). Shared by refine.cu and map_refine.cu.
+// reference's). Used by refine.cu.
 
 #pragma once
 

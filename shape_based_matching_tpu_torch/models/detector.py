@@ -164,13 +164,14 @@ class Detector:
     per-pyramid-level spread factor, finest level first;
     ``num_orientations`` is 8, or 16 for the 16-orientation experiment.
     ``strong_threshold`` is kept for training, which the port does not
-    have yet. ``device`` is where frames, banks and all device work live;
-    asking for "cuda" without a card raises."""
+    have yet. ``device`` is where frames, banks and all device work live:
+    the card unless the caller asks for "cpu" (where every kernel runs its
+    plain twin); "cuda" without a card raises."""
 
     def __init__(self, num_features: int = 63, T=(4, 8),
                  weak_threshold: float = 30.0,
                  strong_threshold: float = 60.0,
-                 num_orientations: int = 8, *, device):
+                 num_orientations: int = 8, *, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector(device='cuda') but CUDA is not "

@@ -61,8 +61,11 @@ SIGNATURES = {
     # B, NSEG, K, M, stream
     "sbm_chain_scores": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _P),
-    # Sfull, D, M, W, slot, wx, wy, live, best, raw, B, C, stream
-    "sbm_map_refine": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # Sfull, D, M, W, slot_of_k, width, height, nfeat, k, x, y, valid,
+    # threshold, k_out, x_out, y_out, sim_out, valid_out, T, w_img, h_img,
+    # B, C, stream
+    "sbm_map_refine": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # lmflat, lm_stride, fx, fy, label, fvalid, k, wx, wy, live,
     # best, raw, part, B, C, N, w_img, h_img, T, CB, G, chunk, stream
     # (part null when CB is 1)

@@ -31,7 +31,7 @@ from shape_based_matching_tpu_torch.ops.cuda.refine import (
 from shape_based_matching_tpu_torch.ops.response import to_i32
 from shape_based_matching_tpu_torch.ops.similarity import (
     LevelBank, _flat_offsets, _positions, _rmin_for_threshold, gather_bank,
-    pack_level_bank)
+    pack_level_bank, refine_from_maps)
 from shape_based_matching_tpu_torch.utils import synthetic
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
 
@@ -256,28 +256,101 @@ def test_coarse_maps_kernel_equals_plain_dense_bank(dev):
     assert torch.equal(got, coarse_maps_plain(lmflat, off, M))
 
 
-@pytest.mark.parametrize("D,M,W,C", [
-    (24, 1024, 32, 300), (1, 256, 16, 300),
-    (1024, 65536, 256, 4096),  # the dense path's re-run at cap 4096
+def _map_refine_args(dev, D, M, W, C, case, B=2, T=4):
+    """Random maps and candidates for the map refine step at T=4 on a level
+    of W x M/W cells: D templates with a map and 5 without (slot -1),
+    random sizes up to the level's (some wider than the level less 16T:
+    the clamp bound goes negative), nfeat 0 for three of them, candidates
+    over the whole level above and a little past it. case "dead": no
+    candidate valid; "zero": all maps 0, so the empty templates score NaN
+    and the others 0."""
+    rng = np.random.RandomState(D + M + C)
+    K = D + 5
+    w_img, h_img = W * T, (M // W) * T
+    slot_of_k = np.concatenate([np.arange(D), np.full(5, -1)])
+    rng.shuffle(slot_of_k)
+    nfeat = rng.randint(0, 64, K)
+    nfeat[rng.choice(K, 3, replace=False)] = 0
+    maps = (np.zeros((B, D, M), np.int32) if case == "zero"
+            else rng.randint(-3, 40, (B, D, M)).astype(np.int32))
+
+    def ints(*args):
+        return torch.from_numpy(rng.randint(*args).astype(np.int32)).to(dev)
+
+    bank = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        slot_of_k, rng.randint(1, w_img + 1, K), rng.randint(1, h_img + 1, K),
+        nfeat)]
+    k, x, y = (ints(0, K, (B, C)), ints(-2, w_img // 2 + 3, (B, C)),
+               ints(-2, h_img // 2 + 3, (B, C)))
+    valid = torch.from_numpy(rng.rand(B, C) > (1.0 if case == "dead"
+                                                else 0.3)).to(dev)
+    return (torch.from_numpy(maps).to(dev), *bank, T, (w_img, h_img), k, x,
+            y, valid, torch.tensor(30.0, device=dev))
+
+
+def _assert_refine_equal(got, want):
+    """k, x, y, valid on every candidate; the score bit for bit where it is
+    not NaN, NaN where the other side has one."""
+    for i in (0, 1, 2, 4):
+        assert torch.equal(got[i], want[i]), i
+    nan = torch.isnan(got[3])
+    assert torch.equal(nan, torch.isnan(want[3]))
+    assert torch.equal(got[3][~nan].view(torch.int32),
+                       want[3][~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("D,M,W,C,case", [
+    (24, 1024, 32, 300, "random"), (1, 256, 16, 300, "random"),
+    (1024, 65536, 256, 4096, "random"),  # the dense re-run at cap 4096
+    (24, 1024, 32, 1, "random"),  # one candidate: a block of one warp
+    (24, 1024, 32, 13, "dead"),   # no candidate valid
+    (8, 1024, 32, 77, "zero"),    # zero maps: scores 0 and NaN
 ])
-def test_map_refine_kernel_equals_plain(dev, D, M, W, C):
-    """Random maps and windows, some reaching past the last map (clipped)
-    or starting before the first; slot -1 and live False do no work."""
-    rng = np.random.RandomState(D + M)
-    B = 2
-    Sfull = torch.from_numpy(rng.randint(-3, 40, (B, D, M))
-                             .astype(np.int32)).to(dev)
-
-    def ints(lo, hi):
-        return torch.from_numpy(rng.randint(lo, hi, (B, C))
-                                .astype(np.int32)).to(dev)
-
-    slot, wx, wy = ints(-1, D), ints(-2, W), ints(-2, M // W)
-    live = torch.from_numpy(rng.rand(B, C) > 0.3).to(dev)
-    got = map_refine(Sfull, W, slot, wx, wy, live)
+def test_map_refine_kernel_equals_plain(dev, D, M, W, C, case):
+    """The fused map refine step (origin, slot, window, first max, score,
+    threshold) against its twin on every output of every candidate, at
+    B=2: windows reaching past the last map (clipped) or starting before
+    the first, slot -1, nfeat 0, C not a multiple of 8."""
+    args = _map_refine_args(dev, D, M, W, C, case)
+    before = map_refine.launches
+    got = map_refine(*args)
     torch.cuda.synchronize()
-    for g, e in zip(got, map_refine_plain(Sfull, W, slot, wx, wy, live)):
-        assert torch.equal(g, e)
+    assert map_refine.launches == before + 1
+    want = map_refine_plain(*args)
+    _assert_refine_equal(got, want)
+    valid = got[4]
+    if case == "dead":
+        assert not valid.any()
+    if case == "zero":
+        assert torch.isnan(got[3]).any() and not valid.any()
+    if case == "random" and C > 1:
+        assert valid.any() and not valid.all()
+
+
+def test_refine_from_maps_is_one_launch_without_host_reads(dev):
+    """refine_from_maps on the card is one launch of kernel 9 and reads
+    nothing back to the host: it records into a CUDA graph (a host read
+    raises during capture), and the replay equals the twin."""
+    args = _map_refine_args(dev, 24, 1024, 32, 300, "random")
+    Sfull, slot_of_k, width, height, nfeat, T, size, *cand = args
+    bank = LevelBank(*(torch.zeros((width.shape[0], 1), dtype=dt,
+                                   device=dev)
+                       for dt in (torch.int32, torch.int32, torch.int32,
+                                  torch.bool)), nfeat, width, height)
+    want = map_refine_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm: library loaded, nothing lazy
+        refine_from_maps(Sfull, slot_of_k, bank, T, size, *cand)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = map_refine.launches
+    with torch.cuda.graph(graph):
+        got = refine_from_maps(Sfull, slot_of_k, bank, T, size, *cand)
+    assert map_refine.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_refine_equal(got, want)
 
 
 @pytest.mark.parametrize("n_ori,color,masked", [

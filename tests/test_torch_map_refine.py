@@ -7,7 +7,13 @@ distinct templates (coarse_maps) must equal JAX's coarse_similarity with
 mask_positions=False; refine_from_maps, whose CPU path runs the plain twin
 of the map-window kernel, must equal JAX's refine_from_maps and its Pallas
 map-window kernel (interpret mode); and on a bank that is not
-pathological the map route must equal the window route.
+pathological the map route must equal the window route. The edge cases
+hold the plain twin of the fused map-refine kernel (window origin, slot,
+window, first max, score, threshold) to JAX on every live candidate:
+origins clamped at both borders, templates wider than the level less 16T
+(a negative clamp bound, so the origin's division must floor), templates
+without a map (slot -1), empty templates (nfeat 0: a NaN score, never
+valid) and tied windows (the first max wins).
 """
 
 import jax.numpy as jnp
@@ -20,6 +26,8 @@ from shape_based_matching_tpu.ops.pallas.refine_pallas import (
     refine_from_maps_pallas)
 from shape_based_matching_tpu_torch.ops import similarity as tsim
 from shape_based_matching_tpu_torch.ops.cuda.coarse import coarse_maps
+from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+    map_refine_plain)
 from shape_based_matching_tpu_torch.utils.convert import (
     level_bank_from_numpy)
 
@@ -135,3 +143,120 @@ def test_map_route_equals_window_route():
                                           thr))
     assert maps[4].any()
     _assert_equal(maps, window)
+
+
+# edge cases of the map refine step: (template side range, slots dropped,
+# map values range, threshold)
+_EDGES = {
+    "clamped": ((40, 41), 0, (-3, 40), 50.0),
+    "wide": ((97, 111), 0, (-3, 40), 50.0),
+    "no_slot": ((30, 60), 4, (-3, 40), 50.0),
+    "ties": ((30, 60), 0, (0, 3), 1.0),
+}
+
+
+def _edge_case(name, B=2, C=48, K=12):
+    """Maps, bank and candidates of one edge case: random maps (all zero
+    for the empty templates 2 and 7, as real maps are), slot -1 for the
+    dropped templates, candidates over the whole level above."""
+    (lo, hi), n_drop, (vlo, vhi), thr = _EDGES[name]
+    rng = np.random.RandomState(sorted(_EDGES).index(name) + 20)
+    W = HW // T
+    width = rng.randint(lo, hi, K).astype(np.int32)
+    height = rng.randint(lo, hi, K).astype(np.int32)
+    nfeat = rng.randint(1, 64, K).astype(np.int32)
+    nfeat[[2, 7]] = 0
+    has = np.ones(K, bool)
+    has[rng.choice([i for i in range(K) if i not in (2, 7)], n_drop,
+                   replace=False)] = False
+    slot_of_k = np.where(has, np.cumsum(has) - 1, -1).astype(np.int32)
+    D = int(has.sum())
+    Sfull = rng.randint(vlo, vhi, (B, D, W * W)).astype(np.int32)
+    Sfull[:, slot_of_k[[2, 7]]] = 0
+    k = rng.randint(0, K, (B, C)).astype(np.int32)
+    x = rng.randint(0, HW // 2, (B, C)).astype(np.int32)
+    y = rng.randint(0, HW // 2, (B, C)).astype(np.int32)
+    valid = rng.rand(B, C) > 0.2
+    one = np.ones((K, 1), np.int32)
+    fields = (one, one, one, one.astype(bool), nfeat, width, height)
+    return Sfull, slot_of_k, fields, k, x, y, valid, np.float32(thr)
+
+
+def _assert_live_equal(got, want, live):
+    """valid and k on every candidate; x, y and the score bits on every
+    live one (valid with a map: both sides read the same window), a NaN
+    score where the other side has one (the bits of a NaN may differ)."""
+    gk, gx, gy, gs, gv = got
+    wk, wx, wy, ws, wv = want
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gx[live], wx[live])
+    np.testing.assert_array_equal(gy[live], wy[live])
+    gs, ws = gs[live], ws[live]
+    nan = np.isnan(gs)
+    np.testing.assert_array_equal(nan, np.isnan(ws))
+    np.testing.assert_array_equal(gs[~nan].view(np.uint32),
+                                  ws[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("name", sorted(_EDGES))
+def test_map_refine_plain_edges_equal_jax(name):
+    Sfull, slot_of_k, fields, k, x, y, valid, thr = _edge_case(name)
+    tbank = level_bank_from_numpy(fields)
+    jbank = jsim.LevelBank(*(jnp.asarray(f) for f in fields))
+    got = [a.numpy() for a in map_refine_plain(
+        torch.from_numpy(Sfull), torch.from_numpy(slot_of_k), tbank.width,
+        tbank.height, tbank.nfeat, T, (HW, HW), *(torch.from_numpy(a) for a
+                                                 in (k, x, y, valid)),
+        torch.tensor(thr))]
+    via_entry = tsim.refine_from_maps(
+        torch.from_numpy(Sfull), torch.from_numpy(slot_of_k), tbank, T,
+        (HW, HW), *(torch.from_numpy(a) for a in (k, x, y, valid)),
+        torch.tensor(thr))
+    for a, b in zip(via_entry, got):
+        np.testing.assert_array_equal(a.numpy(), b)
+    live = valid & (slot_of_k[k] >= 0)
+    for b in range(Sfull.shape[0]):
+        jargs = (jnp.asarray(Sfull[b]), jnp.asarray(slot_of_k), jbank, T,
+                 (HW, HW), *(jnp.asarray(a[b]) for a in (k, x, y, valid)),
+                 jnp.float32(thr))
+        mine = [a[b] for a in got]
+        _assert_live_equal(mine, [np.asarray(a) for a in
+                                  jsim.refine_from_maps(*jargs)], live[b])
+        # JAX's Pallas kernel clamps a window that starts outside the maps
+        # where its plain function clips cell by cell; JAX gives it only
+        # banks whose windows lie inside (no "wide" template)
+        if name != "wide":
+            _assert_live_equal(mine, [np.asarray(a) for a in
+                                      refine_from_maps_pallas(
+                                          *jargs, interpret=True)], live[b])
+    # the case covers what it names
+    cx = np.minimum(np.maximum(2 * x + 1, 8 * T),
+                    HW - fields[5][k] - 8 * T)
+    ok = got[4]
+    assert ok.any() and not ok.all()
+    empty = live & (fields[4][k] == 0)
+    assert empty.any()
+    if name != "wide":  # an empty template's window reads its zero map
+        assert not ok[empty].any() and np.isnan(got[3][empty]).all()
+    if name == "clamped":
+        assert (cx[live] == 8 * T).any() and (
+            cx[live] == HW - fields[5][k][live] - 8 * T).any()
+    if name == "wide":
+        assert ((cx[live] < 0) & (cx[live] % T != 0)).any()
+    if name == "no_slot":
+        assert (valid & (slot_of_k[k] < 0)).any()
+        assert not ok[slot_of_k[k] < 0].any()
+    if name == "ties":  # windows whose maximum is in more than one cell
+        W = HW // T
+        cy = np.minimum(np.maximum(2 * y + 1, 8 * T),
+                        HW - fields[6][k] - 8 * T)
+        rr = np.arange(16)
+        idx = (slot_of_k[k][..., None] * W * W
+               + (cy // T - 8)[..., None] * W + (cx // T - 8)[..., None]
+               + (rr[:, None] * W + rr[None, :]).reshape(-1))
+        win = np.take_along_axis(Sfull.reshape(Sfull.shape[0], -1),
+                                 idx.reshape(idx.shape[0], -1), 1
+                                 ).reshape(idx.shape)
+        n_max = (win == win.max(-1, keepdims=True)).sum(-1)
+        assert (n_max[live & (fields[4][k] > 0)] > 1).all()

@@ -60,6 +60,17 @@ def test_cpu_tensors_launch_no_kernel():
     assert [fn.launches for fn in kernels] == before
 
 
+def test_detector_defaults_to_the_card():
+    """Detector() runs on the card unless the caller asks for the CPU:
+    without CUDA the default raises instead of falling back."""
+    if torch.cuda.is_available():
+        assert Detector().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Detector()
+    assert Detector(device="cpu").device.type == "cpu"
+
+
 def test_wrappers_reject_other_devices():
     """No silent fallback: a tensor that is neither on the CPU nor on a
     CUDA card raises instead of running the plain twin."""

@@ -1,4 +1,5 @@
-"""Time the port's frontend and chain kernels of one checkout on one GPU.
+"""Time the port's frontend, chain and map refine steps of one checkout on
+one GPU.
 
     python tools/ab_torch_kernels.py [--root DIR] [--iters 200] [--out FILE]
 
@@ -11,7 +12,20 @@ against its plain twin first:
   their 512^2 pyrDown at T=8, gray 8 orientations at B=1 and B=8, and
   color 8 orientations at 1024^2, B=1;
 * ``chain_scores`` (chain.cu) on the 10,000-template bank's coarse level
-  (512^2, T=8, K=10000, M=4096) at B=1 and B=8, threshold 85.
+  (512^2, T=8, K=10000, M=4096) at B=1 and B=8, threshold 85;
+* ``refine_from_maps`` (map_refine.cu and what the checkout runs around
+  it) on the overflow re-runs of the map route: the flagship frame with
+  the 1000-template bank at cap 1024 and the 10,000-template bank at cap
+  4096, their level-0 maps of the distinct candidate templates (D=64 and
+  D=1024); then ``refine_by_maps``, the whole map route with its host
+  read, on the same candidates. These are held against the window route
+  (``refine_candidates``) on every valid candidate, which gives the same
+  bits on these banks, so any two checkouts are checked alike. For these
+  two, torch.profiler also counts the device kernels a call runs and
+  their summed device time; for ``refine_from_maps``, the host clock
+  splits a call into the time inside the C entry ``sbm_map_refine``
+  (argument conversion and launch) and the Python around it, and times
+  the wrapper's five output allocations alone.
 
 The inputs come from fixed seeds and the committed bank, so two checkouts
 (for a comparison, run the parent's and this one's in turns, in one chip
@@ -22,10 +36,12 @@ when given.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -45,6 +61,82 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _profiling():
+    """This repository's ``utils/profiling.py``, loaded by its path, so a
+    --root checkout that predates it is measured by the same code."""
+    spec = importlib.util.spec_from_file_location(
+        "_sbm_profiling", os.path.join(REPO, "shape_based_matching_tpu_torch",
+                                       "utils", "profiling.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PROFILING = _profiling()
+
+
+def _device_work(fn) -> dict:
+    """Device kernels a call of `fn` runs, their summed device time a call
+    and that time by kernel name, from torch.profiler (None where it
+    records no device work)."""
+    kern = PROFILING.device_kernels(fn)
+    if not kern:
+        return {"device_kernels": None, "device_ms": None}
+    by_name: dict = {}
+    for name, ms in kern:
+        by_name[name] = by_name.get(name, 0.0) + ms / PROFILING.CALLS
+    return {"device_kernels": len(kern) / PROFILING.CALLS,
+            "device_ms": sum(by_name.values()), "device_by_name": by_name}
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Host ms a call of `fn` on the host clock: `iters` calls after 20
+    warm ones, one synchronize at the end (the queue never fills where the
+    device is the faster)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def _host_split(fn, lib, entry: str, iters: int) -> dict:
+    """`_host_ms` of `fn`, and the part of it spent inside the C entry
+    `entry` of the kernel library `lib` (ctypes' argument conversion and
+    the kernel launch); the rest is the Python around it."""
+    real = getattr(lib, entry)
+    inside = []
+
+    def timed(*a):
+        t = time.perf_counter()
+        code = real(*a)
+        inside.append(time.perf_counter() - t)
+        return code
+
+    setattr(lib, entry, timed)
+    try:
+        host = _host_ms(fn, iters)
+    finally:
+        setattr(lib, entry, real)
+    entry_ms = sum(inside[-iters:]) * 1e3 / iters
+    return {"host_ms": host, "entry_ms": entry_ms,
+            "python_ms": host - entry_ms}
+
+
+def _same_valid(got, want) -> bool:
+    """Two refine steps' (k, x, y, score, valid) agree: valid everywhere,
+    the rest (score bits) on the valid candidates."""
+    valid = got[4]
+    return bool(torch.equal(valid, want[4])) and all(
+        torch.equal(g[valid].view(torch.int32) if g.is_floating_point()
+                    else g[valid], w[valid].view(torch.int32)
+                    if w.is_floating_point() else w[valid])
+        for g, w in zip(got[:4], want[:4]))
 
 
 def _same(got, want) -> bool:
@@ -75,8 +167,11 @@ def main() -> None:
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import coarse_maps
     from shape_based_matching_tpu_torch.ops.similarity import (
-        LevelBank, _positions, _rmin_for_threshold)
+        _D_BUCKETS, LevelBank, _flat_offsets, _positions,
+        _rmin_for_threshold, coarse_extract, distinct_templates, gather_bank,
+        refine_by_maps, refine_candidates, refine_from_maps)
     from shape_based_matching_tpu_torch.utils import synthetic
     from shape_based_matching_tpu_torch.utils.convert import (
         pyramids_to_banks)
@@ -97,13 +192,22 @@ def main() -> None:
                          255 - frames[:1]], dim=1).contiguous()
     rows = []
 
-    def run(kernel, name, fn, plain):
-        same = _same(fn(), plain())
+    def run(kernel, name, fn, plain, check=_same, device=False,
+            entry=None):
+        same = check(fn(), plain())
         torch.cuda.synchronize()
         ms = _time_ms(fn, args.iters)
         rows.append({"kernel": kernel, "case": name, "bitwise": same,
-                     "ms": ms})
-        print(f"{kernel} {name}: {ms:.4f} ms, bitwise {same}")
+                     "ms": ms, **(_device_work(fn) if device else {}),
+                     **(_host_split(fn, build.library(), entry, args.iters)
+                        if entry else {})})
+        extra = (f", {rows[-1]['device_kernels']} device kernels and "
+                 f"{rows[-1]['device_ms']} device ms a call" if device
+                 else "")
+        if entry:
+            extra += (f", host {rows[-1]['host_ms']:.4f} ms a call, "
+                      f"{rows[-1]['entry_ms']:.4f} of it in {entry}")
+        print(f"{kernel} {name}: {ms:.4f} ms, bitwise {same}{extra}")
 
     for name, imgs, T in (("gray8 1024^2 T=4 B=1", frames[:1], 4),
                           ("color8 1024^2 T=4 B=1", color, 4),
@@ -130,6 +234,40 @@ def main() -> None:
         run("chain.cu", f"K=10000 M=4096 B={B}",
             lambda cargs=cargs: chain_scores(*cargs),
             lambda cargs=cargs: chain_scores_plain(*cargs))
+    thr = torch.tensor(85.0, device=dev)
+    for n_templates, cap in ((1000, 1024), (10000, 4096)):
+        pyr = synthetic.load_bank_cache(os.path.join(
+            root, "bench_banks", os.path.basename(
+                synthetic.bank_cache_path(n_templates, 63))))
+        banks = pyramids_to_banks(pyr, 2, dev)
+        chain = plan if n_templates == 10000 else None
+        k, x, y, _, valid, _ = coarse_extract(lms[1][:1], banks[1], 8,
+                                              (512, 512), thr, cap, chain)
+        K = banks[0].fx.shape[0]
+        slots, slot_of_k, n_distinct = distinct_templates(k, valid, K, K)
+        D = next((d for d in _D_BUCKETS if int(n_distinct) <= d < K), K)
+        Sfull = coarse_maps(lms[0][:1], _flat_offsets(
+            gather_bank(banks[0], slots[:D]), 4, 256, 65536, (1024, 1024)),
+            65536)
+        rargs = (banks[0], 4, (1024, 1024), k, x, y, valid, thr)
+        window = refine_candidates(lms[0][:1], *rargs)
+        case = f"K={n_templates} C={cap} D={D} ({int(valid.sum())} valid)"
+        run("refine_from_maps", case,
+            lambda Sfull=Sfull, slot_of_k=slot_of_k, rargs=rargs:
+            refine_from_maps(Sfull, slot_of_k, *rargs),
+            lambda window=window: window, check=_same_valid,
+            device=True, entry="sbm_map_refine")
+        C = k.shape[1]
+        rows[-1]["alloc_ms"] = _host_ms(
+            lambda C=C: [torch.empty((1, C), dtype=t, device=dev)
+                         for t in (torch.int32, torch.int32, torch.int32,
+                                   torch.float32, torch.bool)], args.iters)
+        print(f"  five [1, {C}] output allocations: "
+              f"{rows[-1]['alloc_ms']:.4f} ms on the host")
+        run("refine_by_maps", case,
+            lambda rargs=rargs: refine_by_maps(lms[0][:1], *rargs),
+            lambda window=window: window, check=_same_valid,
+            device=True)
     out = {"root": root, "card": f"{torch.cuda.get_device_name(0)} [{smi}]",
            "rows": rows}
     print(json.dumps(out))

@@ -198,7 +198,8 @@ def main() -> None:
     import chip_smoke as cs
     from shape_based_matching_tpu_torch.ops.cuda import coarse, refine
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _window_origin, coarse_extract)
+        coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
 
     card = f"{torch.cuda.get_device_name(0)} [{cs._nvidia_smi()}]"
     print(card)
@@ -242,7 +243,8 @@ def main() -> None:
         for cap in (256, 1024):
             k, x, y, _, valid, _ = coarse_extract(
                 lms[1], banks[1], T[1], sizes[1], thr_t, cap)
-            wx, wy = _window_origin(banks[0], T[0], sizes[0], k, x, y)
+            wx, wy = window_origin(banks[0].width, banks[0].height, T[0],
+                                   sizes[0], k, x, y)
             rargs = (lms[0], banks[0], T[0], sizes[0], k, wx, wy, valid)
             want = refine.refine_windows_plain(*rargs)
             N = banks[0].fx.shape[1]
