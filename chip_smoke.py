@@ -50,7 +50,25 @@ Phases, each reported on its own line:
    the match is timed (mean of 10 warm calls between CUDA events). Where
    the frame overflows the cap of 256, the re-run's level-0 kernels (the
    window at its cap, or the level maps and the map refine step) are held
-   against their twins and timed too.
+   against their twins and timed too;
+8. training: every committed bench_banks/ snapshot trained on the card
+   (the base ``add_template``, then ``add_templates_rotate``, each
+   timed) equals its snapshot field for field, and the flagship frame
+   matched with the port-trained rot1000x63 bank equals the e2e1000
+   golden through the path's kernels;
+9. the compiled C++ reference's trainings (case1, case0, jabil) on the
+   card equal their goldens;
+10. ``add_templates`` on 64 frames, gray under masks and BGR, equals 64
+   ``add_template`` calls, theta bits included (frames/s of both);
+11. the multi-class match: the registry {bench: rot1000x63, wide:
+   rot1000x128, dense: rot10000x63}, trained by phase 8, on the flagship
+   frame in one merged step. Its coarse route (the planner's own
+   decision on the merged bank), re-run cap and refine routes; its
+   kernels against their twins at the merged shapes; its launches; B=1
+   equal to the union of the single-class lists, its bench and dense
+   parts equal to their goldens, B=8 equal to B=1, ``as_matches=False``
+   at B=8 equal to the list path's entries; timings at B=1 (merged and
+   class by class) and B=8. The seconds of phases 8-11 are printed.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -230,6 +248,10 @@ def _keys(matches):
     return [[m.template_id, m.x, m.y,
              int(np.float32(m.similarity).view(np.uint32))]
             for m in matches]
+
+
+def _class_keys(matches):
+    return [[m.class_id] + k for m, k in zip(matches, _keys(matches))]
 
 
 def _scene(cfg):
@@ -866,6 +888,428 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
                      "e2e_b1_ms": e2e_ms}
 
 
+# the committed bench_banks/ snapshots, trained in the port by phase 8:
+# name -> build_rotated_detector's arguments
+SNAPSHOTS = {
+    "rot1000x63": dict(num_templates=1000, num_features=63),
+    "rot10000x63": dict(num_templates=10000, num_features=63),
+    "rot360x63": dict(num_templates=360, num_features=63),
+    "rot360x63 ori16": dict(num_templates=360, num_features=63, n_ori=16),
+    "rot1000x128": dict(num_templates=1000, num_features=128),
+    "rot1000x256 dense": dict(num_templates=1000, num_features=256,
+                              dense=True),
+    "rot8x8191 s768 dense": dict(num_templates=8, num_features=8191,
+                                 size=768, dense=True),
+}
+# phase 11's registry: class id -> snapshot
+REGISTRY = {"bench": "rot1000x63", "wide": "rot1000x128",
+            "dense": "rot10000x63"}
+
+
+def _fields(pyramids, theta: bool = True) -> list:
+    """Every Template field and every feature (theta as float32 bits)."""
+    return [(t.width, t.height, t.tl_x, t.tl_y, t.pyramid_level, t.sscale,
+             t.orientation, t.tag_field_id, t.fiducial_src,
+             [(f.x, f.y, f.label)
+              + ((int(np.float32(f.theta).view(np.uint32)),) if theta
+                 else ()) for f in t.features])
+            for tp in pyramids for t in tp]
+
+
+def train_phase(card: str) -> tuple[dict, dict]:
+    """Phase 8: train every committed snapshot in the port on the card,
+    as ``build_rotated_detector`` does (the base ``add_template`` on the
+    star or block-noise image under a full mask, then
+    ``add_templates_rotate``), each timed; each bank must equal its
+    snapshot field for field. Then the flagship frame is matched with the
+    port-trained rot1000x63 bank: the list must equal the e2e1000
+    golden, through the path's kernels. Returns the trained detectors
+    and the report."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows)
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        bank_cache_path, load_bank_cache, synthetic_block_noise_image,
+        synthetic_shape_image)
+
+    warm = Detector(device=DEVICE)  # the torch ops' first launches
+    warm.add_template(synthetic_shape_image(64, 0), "warm")
+    trained, report = {}, {}
+    for name, args in SNAPSHOTS.items():
+        K, nf = args["num_templates"], args["num_features"]
+        size, dense = args.get("size", 256), args.get("dense", False)
+        n_ori = args.get("n_ori", 8)
+        img = (synthetic_block_noise_image(size, seed=0) if dense
+               else synthetic_shape_image(size, 0))
+        det = Detector(num_features=nf, T=T_LEVELS, num_orientations=n_ori,
+                       device=DEVICE)
+        t0 = time.perf_counter()
+        if det.add_template(img, "bench", np.full_like(img, 255)) != 0:
+            raise AssertionError(f"train {name}: the base template failed")
+        t1 = time.perf_counter()
+        det.add_templates_rotate("bench", 0, [i * 360.0 / K
+                                              for i in range(1, K)],
+                                 (size / 2.0, size / 2.0))
+        t2 = time.perf_counter()
+        path = bank_cache_path(K, nf, T_LEVELS, size, 0, dense, n_ori)
+        want = load_bank_cache(path)
+        if want is None or _fields(det.class_templates["bench"], False) \
+                != _fields(want, False):
+            raise AssertionError(f"train {name}: differs from "
+                                 f"{os.path.basename(path)}")
+        n_feat = sum(len(t.features) for t in det.get_templates("bench", 0))
+        print(f"train {name}: base add_template ({size}^2, {n_feat} "
+              f"features over {len(T_LEVELS)} levels) {t1 - t0:.4f} s, "
+              f"add_templates_rotate ({K - 1} angles) {t2 - t1:.4f} s; "
+              f"equals {os.path.basename(path)} field for field, on {card}")
+        report[name] = {"base_s": t1 - t0, "rotate_s": t2 - t1,
+                        "templates": K}
+        trained[name] = det
+
+    golden = json.load(open(GOLDEN))
+    det = trained["rot1000x63"]
+    kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
+               map_refine)
+    for fn in kernels:
+        fn.launches = 0
+    got = det.match(_scene(golden["config"]), THRESHOLD)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    if not all(launches.values()):
+        raise AssertionError(f"trained flagship: a kernel was not launched: "
+                             f"{launches}")
+    if _keys(got) != golden["matches"]:
+        raise AssertionError("the port-trained rot1000x63 bank's flagship "
+                             "list differs from the e2e1000 golden")
+    print(f"train: the port-trained rot1000x63 bank matches the flagship "
+          f"frame as the e2e1000 golden ({len(got)} matches); launches "
+          f"{launches}")
+    report["flagship_launches"] = launches
+    return trained, report
+
+
+def _golden_tuples(templates) -> list:
+    """Geometry and sorted feature set of each template pyramid, as
+    tests/test_golden_training.py compares them."""
+    return [[(t["width"], t["height"], t["tl_x"], t["tl_y"],
+              t["pyramid_level"], sorted(tuple(f) for f in t["features"]))
+             for t in tp] for tp in templates]
+
+
+def _port_tuples(det, cid: str) -> list:
+    return _golden_tuples([[{
+        "width": t.width, "height": t.height, "tl_x": t.tl_x,
+        "tl_y": t.tl_y, "pyramid_level": t.pyramid_level,
+        "features": [(f.x, f.y, f.label) for f in t.features]}
+        for t in tp] for tp in det.class_templates[cid]])
+
+
+def cpp_golden_phase(card: str) -> dict:
+    """Phase 9: the compiled C++ reference's trainings on the card (case1:
+    a masked BGR frame and 7 rotations; case0: 10 scales through the
+    shape-info producer; jabil: the 12-template angle x scale sweep with
+    weak 100, strong 200); each must equal
+    tests/goldens/<case>_train_templates.json."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.shape_info import (
+        ShapeInfoProducer)
+    from tests.golden_utils import load_json, load_mat
+
+    report = {}
+    t0 = time.perf_counter()
+    det = Detector(num_features=128, T=T_LEVELS, device=DEVICE)
+    img = load_mat("case1_train_img.bin")
+    det.add_template(img, "case1", load_mat("case1_train_mask.bin"))
+    for a in range(45, 360, 45):
+        det.add_template_rotate("case1", 0, float(a),
+                                (img.shape[1] / 2.0, img.shape[0] / 2.0))
+    report["case1"] = (det, time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    det = Detector(num_features=150, T=T_LEVELS, device=DEVICE)
+    img = load_mat("case0_train_img.bin")
+    producer = ShapeInfoProducer(img)
+    m255 = np.full(img.shape[:2], 255, np.uint8)
+    for i in range(1, 11):
+        msk = (producer.transform(m255, 0, i / 10.0) > 0) * np.uint8(255)
+        det.add_template(producer.transform(img, 0, i / 10.0), "case0",
+                         msk, num_features=int(150 * i / 10.0))
+    report["case0"] = (det, time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    det = Detector(num_features=150, T=T_LEVELS, weak_threshold=100.0,
+                   strong_threshold=200.0, device=DEVICE)
+    shapes = ShapeInfoProducer(load_mat("jabil_fid_img.bin"))
+    shapes.angle_range, shapes.angle_step = [0.0, 270.0], 90.0
+    shapes.scale_range, shapes.scale_step = [0.9, 1.1], 0.1
+    for info in shapes.produce_infos():
+        det.add_template(shapes.src_of(info), "jabil", shapes.mask_of(info),
+                         info.scale, info.angle, 3, "fid.png")
+    report["jabil"] = (det, time.perf_counter() - t0)
+
+    out = {}
+    for case, (det, sec) in report.items():
+        want = _golden_tuples(load_json(f"{case}_train_templates.json")
+                              ["templates"])
+        if _port_tuples(det, case) != want:
+            raise AssertionError(f"{case}: training differs from the C++ "
+                                 f"golden")
+        print(f"train {case}: {len(want)} templates equal the C++ golden "
+              f"in {sec:.4f} s on {card}")
+        out[case] = {"templates": len(want), "seconds": sec}
+    return out
+
+
+def sweep_phase(card: str) -> dict:
+    """Phase 10: add_templates on 64 same-shaped frames (the star at
+    256^2, seeds 0-63), gray under masks and BGR, against 64 add_template
+    calls: the same ids and templates, theta bits included. Times both on
+    the host clock (frames/s, training included)."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        synthetic_shape_image)
+
+    gray = np.stack([synthetic_shape_image(256, s) for s in range(64)])
+    masks = np.stack([(np.random.RandomState(s).rand(256, 256) > 0.1)
+                      .astype(np.uint8) * 255 for s in range(64)])
+    out = {}
+    for mode, frames, msk in (("gray masked", gray, masks),
+                              ("bgr", _bgr(gray), None)):
+        bat = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+        bat.add_templates(frames[:2], "warm", None if msk is None
+                          else msk[:2])
+        t0 = time.perf_counter()
+        ids = bat.add_templates(frames, "c", msk)
+        t1 = time.perf_counter()
+        seq = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+        seq_ids = [seq.add_template(f, "c", None if msk is None else m)
+                   for f, m in zip(frames, msk if msk is not None
+                                   else [None] * 64)]
+        t2 = time.perf_counter()
+        if ids != seq_ids or _fields(bat.class_templates["c"]) != \
+                _fields(seq.class_templates["c"]):
+            raise AssertionError(f"sweep {mode}: add_templates differs from "
+                                 f"64 add_template calls")
+        fps, fps1 = 64 / (t1 - t0), 64 / (t2 - t1)
+        print(f"sweep {mode}: add_templates on 64 frames equals 64 "
+              f"add_template calls (theta bits included; "
+              f"{sum(i >= 0 for i in ids)} trained): {fps:.1f} frames/s "
+              f"batched, {fps1:.1f} frames/s one by one, on {card}")
+        out[mode] = {"fps_batched": fps, "fps_single": fps1,
+                     "trained": sum(i >= 0 for i in ids)}
+    return out
+
+
+def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
+    """Phase 11: the registry {bench: rot1000x63, wide: rot1000x128,
+    dense: rot10000x63}, trained by phase 8, on the flagship frame at
+    threshold 85, in ONE merged step (cap min(256 * 3, 4096)) and its
+    re-run. Its kernels against their twins at the merged bank's shapes;
+    the merged bank's coarse route, re-run cap and refine routes; the
+    path's launches; B=1 equal to the union of the three single-class
+    lists and, per class, bench and dense equal to the e2e1000 and
+    e2e10000 goldens; B=8 equal to B=1 frame by frame; as_matches=False at
+    B=8 (cap 16384, which holds every candidate) with the list path's
+    valid entries. Timed at B=1 and B=8."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import (
+        _CAND_BUCKETS, _MERGED_MAX_CAP, _batch_pyramid, _sort_dedup)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import (
+        chain_scores, chain_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine, map_refine_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows, refine_windows_plain)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
+
+    dev = torch.device(DEVICE)
+    golden = json.load(open(GOLDEN))
+    dense_golden = json.load(open(DENSE_GOLDEN))
+    cfg = golden["config"]
+    scene = _scene(cfg)
+    batch = np.stack([_scene({**cfg, "scene_seed": cfg["scene_seed"] + i})
+                      for i in range(BATCH)])
+    det = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+    for cid, snap in REGISTRY.items():
+        det.class_templates[cid] = trained[snap].class_templates["bench"]
+    group = tuple(sorted(REGISTRY))
+    t0 = time.perf_counter()
+    banks = det._get_banks(group)
+    sizes = det._level_sizes(scene.shape)
+    plan = det._get_chain(group, sizes[1])
+    setup_s = time.perf_counter() - t0
+    cap = min(256 * len(REGISTRY), _MERGED_MAX_CAP)
+    thr = torch.tensor(THRESHOLD, dtype=torch.float32, device=dev)
+    lms = _batch_pyramid(torch.from_numpy(scene[None]).to(dev),
+                         det.T_at_level, det.pyramid_levels,
+                         det.weak_threshold)
+    T1, (w1, h1) = T_LEVELS[1], sizes[1]
+    W1, H1 = w1 // T1, h1 // T1
+    M1 = W1 * H1
+    K, N = banks[1].fx.shape
+    N0 = banks[0].fx.shape[1]
+    pos = _positions(banks[1], T1, W1, H1)
+    rmin, _ = _rmin_for_threshold(banks[1].nfeat, thr)
+    off = _flat_offsets(banks[1], T1, W1, M1, sizes[1])
+    if plan is not None:
+        route = (f"delta chain ({plan.prog_start.numel() - 1} programs, "
+                 f"{plan.slots.numel()} slot visits against "
+                 f"{int(banks[1].nfeat.sum())} plain)")
+        c_fn, c_plain, c_src = chain_scores, chain_scores_plain, "chain.cu"
+        c_args = (lms[1], plan, pos, rmin)
+        c_rep = "similarity_pallas.py:572"
+    else:
+        route = f"coarse.cu ({N} slots)"
+        c_fn, c_plain, c_src = coarse_scores, coarse_scores_plain, \
+            "coarse.cu"
+        c_args = (lms[1], off, pos, rmin, M1)
+        c_rep = ("similarity_pallas.py:175" if N > 63
+                 else "similarity_pallas.py:55")
+    S, cnt = c_fn(*c_args)
+    c_err = _max_abs_err(zip((S, cnt), c_plain(*c_args)))
+    k, x, y, _, valid, n_above = coarse_extract(
+        lms[1], banks[1], T1, sizes[1], thr, cap, plan)
+    wx, wy = window_origin(banks[0].width, banks[0].height, T_LEVELS[0],
+                           sizes[0], k, x, y)
+    w_args = (lms[0], banks[0], T_LEVELS[0], sizes[0], k, wx, wy, valid)
+    w_err = _max_abs_err(zip(refine_windows(*w_args),
+                             refine_windows_plain(*w_args)))
+    n_above = int(n_above[0])
+    re_cap = next((c for c in _CAND_BUCKETS if c >= n_above), n_above)
+    print(f"multiclass: merged bank {group} K={K} (coarse N={N}, level-0 "
+          f"N={N0}) built and planned in {setup_s:.3f} s; coarse route "
+          f"{route}, vs plain max_abs_err {c_err}; window refine at cap "
+          f"{cap} vs plain max_abs_err {w_err} ({int(valid.sum())} live); "
+          f"{n_above} candidates, re-run cap {re_cap}")
+    if c_err or w_err:
+        raise AssertionError("multiclass: a kernel disagrees with its twin")
+    rerun = ()
+    if n_above > cap:
+        mr = _map_route_check(lms, banks, sizes, thr, re_cap, plan)
+        if mr["maps_err"] or mr["mr_err"]:
+            raise AssertionError("multiclass: a re-run kernel disagrees")
+        rerun = (
+            (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
+             mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
+             lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
+             _coarse_work(*mr["maps_args"], counted=False)),
+            (map_refine, "map_refine.cu", "refine_pallas.py:154",
+             mr["mr_err"], lambda: map_refine(*mr["mr_args"]),
+             lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
+             mr["mr_work"]))
+
+    # the path through the kernels
+    kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
+               coarse_maps, map_refine)
+    for fn in kernels:
+        fn.launches = 0
+    det.refine_routes.clear()
+    got = det.match(scene, THRESHOLD)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    routes = dict(det.refine_routes)
+    print(f"multiclass: launches {launches}; refine routes {routes}; "
+          f"{len(got)} matches")
+    need = ["quant_spread", c_fn.__name__, "refine_windows"]
+    if routes.get("maps"):
+        need += ["coarse_maps", "map_refine"]
+    other = "coarse_scores" if plan is not None else "chain_scores"
+    if not all(launches[n] for n in need) or launches[other]:
+        raise AssertionError(f"multiclass: a kernel of the path was not "
+                             f"launched, or another coarse route ran: "
+                             f"{launches}")
+    singles = {c: det.match(scene, THRESHOLD, class_ids=[c])
+               for c in REGISTRY}
+    union = _sort_dedup([m for c in REGISTRY for m in singles[c]])
+    if _class_keys(got) != _class_keys(union):
+        raise AssertionError("multiclass: the merged list differs from the "
+                             "union of the single-class lists")
+    for cid, g in (("bench", golden), ("dense", dense_golden)):
+        if _keys([m for m in got if m.class_id == cid]) != g["matches"]:
+            raise AssertionError(f"multiclass: the {cid} part differs from "
+                                 f"its golden")
+    got8 = det.match_batch(batch, THRESHOLD)
+    for i, frame in enumerate(batch):
+        if _class_keys(got8[i]) != _class_keys(det.match(frame, THRESHOLD)):
+            raise AssertionError(f"multiclass: B=8 frame {i} differs from "
+                                 f"its B=1 match")
+    packed = det.match_batch(batch, THRESHOLD, cand_cap=16384,
+                             as_matches=False)
+    for cid, (pk, px, py, psc, pvalid, povf) in packed.items():
+        if bool(povf.any()):
+            raise AssertionError(f"multiclass: as_matches=False overflowed "
+                                 f"at cap 16384 ({cid})")
+        rows = torch.stack([pk, px, py, psc.view(torch.int32)], dim=-1)
+        rows, pvalid = rows.cpu().numpy(), pvalid.cpu().numpy()
+        for b in range(BATCH):
+            entries = sorted({tuple(int(v) for v in r)
+                              for r in rows[b][pvalid[b]]})
+            # similarities are >= 0, so their bits read the same as int32
+            lists = sorted(tuple(t[1:]) for t in _class_keys(got8[b])
+                           if t[0] == cid)
+            if entries != lists:
+                raise AssertionError(f"multiclass: as_matches=False {cid} "
+                                     f"frame {b} differs from the list path")
+    print(f"multiclass: B=1 equals the union of the three single-class "
+          f"lists ({len(got)} matches; bench and dense parts equal the "
+          f"e2e1000 and e2e10000 goldens); B={BATCH} equals B=1 frame by "
+          f"frame; as_matches=False at B={BATCH} (cap 16384) holds the "
+          f"list path's entries")
+
+    table = (
+        (c_fn, c_src, c_rep, c_err, lambda: c_fn(*c_args),
+         lambda: c_plain(*c_args), f"merged K={K} N={N} M={M1}",
+         (_chain_work(lms[1], plan, K, M1) if plan is not None
+          else _coarse_work(lms[1], off, M1, counted=True))),
+        (refine_windows, "refine.cu", "refine_pallas.py:67", w_err,
+         lambda: refine_windows(*w_args),
+         lambda: refine_windows_plain(*w_args),
+         f"C={cap} N={N0} ({int(valid.sum())} live)",
+         _refine_work(lms[0], banks[0], k, valid)),
+    ) + rerun
+    records = []
+    for fn, src, replaces, err, kern, plain, shape, work in table:
+        ms = _time_ms(kern, 10)
+        plain_ms = _time_ms(plain, 2)
+        records.append(_record(fn, src, replaces, err, launches,
+                               "multiclass", ms, plain_ms, work, shape))
+        print(f"time multiclass {fn.__name__} [{shape}]: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound "
+              f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})"
+              f" on {card}")
+    if rerun:
+        _add_device_ms(records, mr)
+    e2e_ms = _time_ms(lambda: det.match(scene, THRESHOLD), 10)
+    per_class_ms = _time_ms(lambda: [det.match(scene, THRESHOLD,
+                                               class_ids=[c])
+                                     for c in REGISTRY], 10)
+    b8_ms = _time_ms(lambda: det.match_batch(batch, THRESHOLD), 3)
+    print(f"time e2e multiclass B=1 {scene.shape[1]}x{scene.shape[0]} x {K} "
+          f"templates in {len(REGISTRY)} classes: "
+          f"{e2e_ms:.4f} ms/frame merged, {per_class_ms:.4f} ms for the "
+          f"three single-class matches; B={BATCH}: {b8_ms:.4f} ms/batch = "
+          f"{BATCH * 1e3 / b8_ms:.1f} frames/s on {card}")
+    return records, {"coarse_route": route, "K": K, "coarse_N": N,
+                     "level0_N": N0, "cap": cap, "n_above": n_above,
+                     "rerun_cap": re_cap, "refine_routes": routes,
+                     "launches": launches, "n_matches": len(got),
+                     "setup_s": setup_s, "e2e_b1_ms": e2e_ms,
+                     "per_class_b1_ms": per_class_ms,
+                     "b8_ms": b8_ms, "fps_b8": BATCH * 1e3 / b8_ms}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1102,6 +1546,23 @@ def main() -> None:
     for name in MODE_PATHS:
         path_records, report["paths"][name] = mode_path_phase(name, card)
         records += path_records
+
+    # 8-11. training and the multi-class match
+    t0 = time.perf_counter()
+    trained, report["train"] = train_phase(card)
+    t1 = time.perf_counter()
+    report["train_cpp_goldens"] = cpp_golden_phase(card)
+    t2 = time.perf_counter()
+    report["train_sweep"] = sweep_phase(card)
+    t3 = time.perf_counter()
+    mc_records, report["multiclass"] = multiclass_phase(trained, card)
+    records += mc_records
+    t4 = time.perf_counter()
+    report["new_phase_seconds"] = {"train": t1 - t0, "cpp_goldens": t2 - t1,
+                                   "sweep": t3 - t2, "multiclass": t4 - t3}
+    print(f"seconds: train snapshots {t1 - t0:.1f}, C++ goldens "
+          f"{t2 - t1:.1f}, batched sweep {t3 - t2:.1f}, multiclass "
+          f"{t4 - t3:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

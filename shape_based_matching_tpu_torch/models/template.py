@@ -1,8 +1,8 @@
 """Feature / Template data model (mirror of line2Dup.h:116-153).
 
 Plain Python dataclasses on the host; packed into `LevelBank` tensors
-(ops/similarity.py) before anything touches the device. YAML I/O and the
-training-time crop are not part of the match path and are not ported yet.
+(ops/similarity.py) before anything touches the device. ``crop_templates``
+is training's bounding-box crop. YAML I/O of templates is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,3 +35,39 @@ class Template:
 
 
 TemplatePyramid = List[Template]  # one Template per pyramid level
+
+
+def crop_templates(tp: TemplatePyramid) -> tuple:
+    """Tighten the bounding box over all levels (line2Dup.cpp:115-161).
+
+    Feature positions are scaled by << pyramid_level, the min corner is
+    forced even, and features are rebased. Returns (min_x, min_y, w, h) at
+    level 0. Mutates `tp` in place.
+    """
+    min_x = min_y = 1 << 30
+    max_x = max_y = -(1 << 30)
+    for t in tp:
+        for f in t.features:
+            x = f.x << t.pyramid_level
+            y = f.y << t.pyramid_level
+            min_x = min(min_x, x)
+            min_y = min(min_y, y)
+            max_x = max(max_x, x)
+            max_y = max(max_y, y)
+    # C-style remainder: the reference's `min_x % 2 == 1` is FALSE for
+    # negative odd values (C gives -1), so rotated templates crossing the
+    # origin keep an odd min corner. Python's % would wrongly decrement.
+    if min_x >= 0 and min_x % 2 == 1:
+        min_x -= 1
+    if min_y >= 0 and min_y % 2 == 1:
+        min_y -= 1
+    for t in tp:
+        l = t.pyramid_level
+        t.width = (max_x - min_x) >> l
+        t.height = (max_y - min_y) >> l
+        t.tl_x = min_x >> l
+        t.tl_y = min_y >> l
+        for f in t.features:
+            f.x -= t.tl_x
+            f.y -= t.tl_y
+    return (min_x, min_y, max_x - min_x, max_y - min_y)

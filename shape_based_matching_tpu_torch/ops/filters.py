@@ -12,6 +12,8 @@ orientation quantization downstream matches the C++ reference
 * ``pyr_down_u8``: cv::pyrDown, 5-tap [1,4,6,4,1] separable kernel,
   BORDER_REFLECT_101, ``(acc + 128) >> 8``, even pixels kept.
 * ``resize_nearest``: cv::resize(INTER_NEAREST) of masks down the pyramid.
+* ``erode3_u8``: cv::erode with the default 3x3 kernel, BORDER_REPLICATE
+  (training's mask erosion).
 
 Every function works on the last two axes of a ``[..., H, W]`` tensor, so
 a batch of frames, or the channels of planar color frames ``[B, 3, H,
@@ -110,3 +112,14 @@ def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
         return torch.floor(i * scale).to(torch.int64).clamp_(max=n_in - 1)
 
     return img.index_select(-2, index(oh, h)).index_select(-1, index(ow, w))
+
+
+def erode3_u8(img: torch.Tensor) -> torch.Tensor:
+    """cv::erode(img, Mat(), 1, BORDER_REPLICATE): 3x3 min filter on the
+    last two axes (template mask erosion, line2Dup.cpp:458)."""
+    x = _pad_replicate(img, 1, -2)
+    x = torch.minimum(torch.minimum(x[..., :-2, :], x[..., 1:-1, :]),
+                      x[..., 2:, :])
+    x = _pad_replicate(x, 1, -1)
+    return torch.minimum(torch.minimum(x[..., :-2], x[..., 1:-1]),
+                         x[..., 2:])

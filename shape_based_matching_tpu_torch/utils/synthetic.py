@@ -1,9 +1,10 @@
 """Synthetic scenes and the committed template banks, in numpy only.
 
-Copies of ``shape_based_matching_tpu.utils.synthetic`` (the pieces the
-match path needs) so the port never imports the JAX package: the same
-seeds give the same images, and ``load_bank_cache`` reads the same
-``bench_banks/*.npz`` snapshots under the same schema-version check.
+Copies of ``shape_based_matching_tpu.utils.synthetic`` so the port never
+imports the JAX package: the same seeds give the same images,
+``load_bank_cache`` reads the same ``bench_banks/*.npz`` snapshots under
+the same schema-version check, and ``build_rotated_detector`` trains the
+banks those snapshots hold.
 """
 
 from __future__ import annotations
@@ -125,3 +126,30 @@ def load_bank_cache(path: str):
             row += 1
         pyramids.append(tp)
     return pyramids
+
+
+def build_rotated_detector(num_templates: int = 360, num_features: int = 63,
+                           T=(4, 8), size: int = 256, seed: int = 0,
+                           dense: bool = False, n_ori: int = 8,
+                           device="cuda"):
+    """Train a Detector with one class, "bench": one template trained on
+    the star image (block noise when `dense`, feature-saturated templates
+    for wide banks) under a full mask, and its num_templates - 1
+    rotations by 360/num_templates degree steps about the image centre.
+    These are the banks of the ``bank_cache_path`` snapshots (which leave
+    out Feature.theta). Returns (detector, training image)."""
+    from ..models.detector import Detector
+
+    templ_img = (synthetic_block_noise_image(size, seed=seed) if dense
+                 else synthetic_shape_image(size, seed))
+    det = Detector(num_features=num_features, T=T, num_orientations=n_ori,
+                   device=device)
+    tid = det.add_template(templ_img, "bench", np.full_like(templ_img, 255))
+    if tid != 0:
+        raise RuntimeError("synthetic template training failed")
+    step = 360.0 / num_templates
+    c = size / 2.0
+    det.add_templates_rotate("bench", 0,
+                             [i * step for i in range(1, num_templates)],
+                             (c, c))
+    return det, templ_img

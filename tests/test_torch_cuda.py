@@ -741,3 +741,53 @@ def test_frontend_phase_every_integer_gradient(dev):
     torch.cuda.synchronize()
     want = phase_deg(dx.cpu(), dy.cpu())
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _pyramid_fields(pyramids):
+    return [(t.width, t.height, t.tl_x, t.tl_y,
+             [(f.x, f.y, f.label, int(np.float32(f.theta).view(np.uint32)))
+              for f in t.features]) for tp in pyramids for t in tp]
+
+
+@pytest.mark.parametrize("n_ori,color,masked", [
+    (8, False, True), (8, True, False), (16, False, False)])
+def test_training_on_card_equals_cpu(dev, n_ori, color, masked):
+    """add_templates with the device half on the card trains the same
+    templates as on the CPU, theta bits included (a flat frame fails on
+    both)."""
+    frames = np.stack([synthetic.synthetic_shape_image(128, s)
+                       for s in range(3)] + [np.full((128, 128), 90,
+                                                     np.uint8)])
+    if color:
+        frames = np.stack([frames, np.roll(frames, 1, axis=2),
+                           255 - frames], axis=-1)
+    masks = ((np.random.RandomState(1).rand(4, 128, 128) > 0.1)
+             .astype(np.uint8) * 255 if masked else None)
+    pyr = []
+    for device in ("cpu", dev):
+        det = Detector(num_features=48, num_orientations=n_ori,
+                       device=device)
+        assert det.add_templates(frames, "c", masks, chunk=3)[3] == -1
+        pyr.append(_pyramid_fields(det.class_templates["c"]))
+    assert pyr[0] == pyr[1]
+
+
+def test_merged_match_on_card_equals_cpu(dev):
+    """Two classes of different widths in one merged step on the card,
+    with an overflow re-run at cand_cap=8, give the CPU's lists."""
+    frames = np.stack([synthetic.synthetic_scene(
+        256, 256, synthetic.synthetic_shape_image(64, 0), n_instances=2,
+        seed=s) for s in (3, 4)])
+    got = []
+    for device in ("cpu", dev):
+        det = Detector(num_features=64, device=device)
+        for cid, nf in (("wide", 64), ("narrow", 24)):
+            det.add_template(synthetic.synthetic_shape_image(64, 0), cid,
+                             num_features=nf)
+            det.add_templates_rotate(cid, 0, [30.0 * i for i in range(1, 12)],
+                                     (32.0, 32.0))
+        got.append([[(m.class_id, m.template_id, m.x, m.y, m.similarity)
+                     for m in ms] for ms in det.match_batch(
+            frames, 75.0, ["wide", "narrow"], cand_cap=8)])
+        assert ("narrow", "wide") in det._merged
+    assert got[0] == got[1] and all(got[0])

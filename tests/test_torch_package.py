@@ -1,6 +1,7 @@
-"""Boundaries of the PyTorch port: it never imports JAX, its kernel
-wrappers run the plain twins (and count no launch) only for CPU tensors,
-and it builds kernels only with nvcc."""
+"""Boundaries of the PyTorch port: it never imports JAX (training
+included), its kernel wrappers run the plain twins (and count no launch)
+only for CPU tensors, it builds kernels only with nvcc, and a failed
+build of its host helpers raises."""
 
 import os
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from shape_based_matching_tpu_torch import Detector
+from shape_based_matching_tpu_torch.models import native
 from shape_based_matching_tpu_torch.ops.cuda import build
 from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
 from shape_based_matching_tpu_torch.ops.cuda.coarse import (
@@ -29,8 +31,17 @@ from shape_based_matching_tpu_torch import Detector
 from shape_based_matching_tpu_torch.utils import synthetic as s
 det = Detector(num_features=63, T=(4, 8), device="cpu")
 det.class_templates["c"] = s.load_bank_cache(s.bank_cache_path(360, 63))
-matches = det.match(s.synthetic_shape_image(256, 0), 85.0)  # train image
+img = s.synthetic_shape_image(256, 0)
+matches = det.match(img, 85.0)  # train image
 assert matches[0].template_id == 0 and matches[0].similarity == 100.0
+# train, rotate, match two classes in one merged step
+assert det.add_template(img, "t", np.full_like(img, 255)) == 0
+assert det.add_templates_rotate("t", 0, [90.0, 180.0], (128.0, 128.0)) \
+    == [1, 2]
+both = det.match(img, 85.0)
+assert ("c", "t") in det._merged
+top = {(m.class_id, m.template_id) for m in both if m.similarity == 100.0}
+assert {("c", 0), ("t", 0)} <= top
 assert "jax" not in sys.modules, "the port imported jax"
 print(len(matches))
 """
@@ -101,3 +112,22 @@ def test_library_name_follows_sources():
     assert sorted(os.path.basename(s) for s in build._sources()) == [
         "argmax.cuh", "chain.cu", "coarse.cu", "frontend.cu", "lmword.cuh",
         "map_refine.cu", "refine.cu"]
+
+
+def test_host_helper_build_failure_raises(monkeypatch, tmp_path):
+    """The training helpers build with the host C++ compiler; a build that
+    fails raises with the compiler's message (no silent Python
+    fallback)."""
+    bad = tmp_path / "host.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", str(bad))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "host"))
+    native.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="host.cpp") as err:
+            native.library()
+        assert "error" in str(err.value)
+        assert not [f for f in os.listdir(tmp_path / "host")
+                    if f.endswith(".so")]
+    finally:
+        native.library.cache_clear()
