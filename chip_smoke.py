@@ -68,7 +68,31 @@ Phases, each reported on its own line:
    equal to the union of the single-class lists, its bench and dense
    parts equal to their goldens, B=8 equal to B=1, ``as_matches=False``
    at B=8 equal to the list path's entries; timings at B=1 (merged and
-   class by class) and B=8. The seconds of phases 8-11 are printed.
+   class by class) and B=8. The seconds of phases 8-11 are printed;
+12. the production path (match, then sim2 ICP pose refinement): the
+   committed 1000 x 128 bank on ``synthetic_scene(1024, 1024, ...,
+   n_instances=4, seed=7)`` at threshold 85, top 32 candidates, 12
+   iterations, radius 8, cap 256. The edge field on the card against its
+   CPU twin (edge, has, off bitwise) and the octant of every integer
+   gradient against the CPU's; the path's kernels against their twins;
+   ``Detector.match_icp`` against ``tests/goldens/
+   torch_port_production_icp.json`` (match keys bitwise and in order,
+   poses within JAX's host-vs-packed tolerance) with its launches, and
+   the same call on the CPU against the golden; the
+   sync contract (no synchronizing call at a ``match_icp_async``
+   dispatch, each of its stages returning while the card still runs a
+   kernel queued before it, the card's launch queue depth, one download
+   per ``result()`` and per ``match_icp``);
+   ``match_refine_batch`` against ``refine_matches_icp``; ms/frame of
+   the edge field, the ICP at 64 candidates, match + refine, match_icp,
+   a 3-frame match_icp_async loop and match_refine_batch at B=1 and B=8;
+   device kernels, device time and idle share of a call;
+13. patch_2843: the frontend's opencv_contrib #2843 mode against its
+   twin in eight modes (gray / BGR, 8 / 16 orientations, with and without
+   a mask), ``Detector(patch_2843=True)`` on the flagship frame against
+   its JAX golden through the kernels, and the frontend's default and
+   patch modes timed side by side. The seconds of phases 12-13 are
+   printed.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -1310,6 +1334,530 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
                      "b8_ms": b8_ms, "fps_b8": BATCH * 1e3 / b8_ms}
 
 
+PRODUCTION_GOLDEN = os.path.join(GOLDENS, "torch_port_production_icp.json")
+PATCH_GOLDEN = os.path.join(GOLDENS,
+                            "torch_port_e2e1000_patch2843_matches.json")
+# the golden's pose contract (JAX's host-vs-packed tolerance,
+# tests/test_icp.py): |d dtheta| deg, |d dscale|, |d tx|, |d ty| px
+POSE_TOL = {"dtheta_deg": 1e-3, "dscale": 1e-4, "tx": 1e-2, "ty": 1e-2}
+STREAM_SEEDS = (7, 11, 13)  # bench.py's production_stream frames
+
+
+def _pose_check(got: list, entries: list, what: str) -> dict:
+    """Match keys equal and in order, valid and inliers equal, poses
+    within POSE_TOL. Returns the largest deviation of each pose field;
+    raises otherwise."""
+    keys = [[r["match"].template_id, r["match"].x, r["match"].y,
+             int(np.float32(r["match"].similarity).view(np.uint32))]
+            for r in got]
+    if keys != [e["match"] for e in entries]:
+        raise AssertionError(f"{what}: the match keys differ from the "
+                             f"golden ({len(got)} vs {len(entries)})")
+    dev = {f: 0.0 for f in (*POSE_TOL, "rmse")}
+    for r, e in zip(got, entries):
+        if r["valid"] != e["valid"] or r["inliers"] != e["inliers"]:
+            raise AssertionError(f"{what}: valid/inliers differ at "
+                                 f"{e['match']}")
+        for f in dev:
+            dev[f] = max(dev[f], abs(r[f] - e[f]))
+    bad = {f: v for f, v in dev.items() if f in POSE_TOL
+           and v >= POSE_TOL[f]}
+    if bad:
+        raise AssertionError(f"{what}: poses past the tolerance: {bad}")
+    return dev
+
+
+def _syncs(fn):
+    """(fn(), the synchronizing CUDA calls torch made in it), counted by
+    torch's sync debug mode as warnings."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep: about 0.5 s on the card
+
+
+def _behind_sleep(fn) -> tuple[float, bool]:
+    """(host ms of fn(), whether the card was still running a sleep kernel
+    queued before it when it returned): a call that waits for the card
+    returns only after the sleep ends."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    busy = not done.query()
+    torch.cuda.synchronize()
+    return ms, busy
+
+
+def _launch_queue_depth(limit: int = 4096) -> int | None:
+    """Kernel launches the host can queue behind a running kernel before a
+    launch blocks (None: none of `limit` blocked)."""
+    x = torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    depth = None
+    for i in range(limit):
+        t0 = time.perf_counter()
+        x.add_(1)
+        if time.perf_counter() - t0 > 0.05:
+            depth = i
+            break
+    torch.cuda.synchronize()
+    return depth
+
+
+def _sync_contract(det, cid: str, frames: list, cfg: dict) -> dict:
+    """match_icp_async on device-resident frames dispatches without
+    waiting for the card: no synchronizing call under torch's sync debug
+    mode "error", and each stage of the dispatch (the class step, the
+    edge field, the candidate selection with the ICP, the packing) leaves
+    the card still running a sleep kernel queued before it. (The whole
+    dispatch queues more launches than the card's launch queue holds, so
+    behind a long kernel it waits for room: the queue depth and that wait
+    are reported.) Each .result() and a warm match_icp then make one
+    synchronizing call, the download, on a frame that does not overflow
+    the cap (an overflowing one takes the two-download fallback)."""
+    from shape_based_matching_tpu_torch.models.icp import (
+        _pack_refined, edge_nearest_field, refine_packed_candidates)
+
+    kw = dict(top_c=cfg["top_c"], iters=cfg["iters"], radius=cfg["radius"],
+              cand_cap=cfg["cand_cap"])
+    thr = cfg["threshold"]
+    for f in frames:  # warm: banks, plans, allocator
+        det.match_icp_async(f, thr, **kw).result()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [det.match_icp_async(f, thr, **kw) for f in frames]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    f = frames[0]
+    k, x, y, sc, valid, ovf = det.match_batch(
+        f[None], thr, cand_cap=cfg["cand_cap"], as_matches=False)[cid]
+    field = edge_nearest_field(f, det.weak_threshold, cfg["radius"])
+    bank0 = det._get_banks(cid)[0]
+    refined = refine_packed_candidates(
+        field[0], field[1], field[3], field[4], bank0.fx, bank0.fy,
+        bank0.valid, k[0], x[0], y[0], sc[0], valid[0], top_c=cfg["top_c"],
+        iters=cfg["iters"], radius=cfg["radius"])
+    stages = {
+        "match_batch": lambda: det.match_batch(
+            f[None], thr, cand_cap=cfg["cand_cap"], as_matches=False),
+        "edge_field": lambda: edge_nearest_field(f, det.weak_threshold,
+                                                 cfg["radius"]),
+        # the ICP loop repeats one body: half the steps keep the stage
+        # under the launch queue's depth
+        "select_and_icp": lambda: refine_packed_candidates(
+            field[0], field[1], field[3], field[4], bank0.fx, bank0.fy,
+            bank0.valid, k[0], x[0], y[0], sc[0], valid[0],
+            top_c=cfg["top_c"], iters=cfg["iters"] // 2,
+            radius=cfg["radius"]),
+        "pack": lambda: _pack_refined(*refined, ovf[0]),
+    }
+    probes = {name: _behind_sleep(fn) for name, fn in stages.items()}
+    waited = [name for name, (_, busy) in probes.items() if not busy]
+    depth = _launch_queue_depth()
+    whole_ms, whole_busy = _behind_sleep(
+        lambda: det.match_icp_async(f, thr, **kw))
+    if waited:
+        raise AssertionError(f"match_icp_async's stages {waited} waited "
+                             f"for the card")
+    overflow = []
+    per_result = []
+    for fr, h in zip(frames, handles):
+        overflow.append(bool(det.match_batch(
+            fr[None], thr, as_matches=False,
+            cand_cap=cfg["cand_cap"])[cid][5][0]))
+        got, n = _syncs(h.result)
+        if h.result() is not got:
+            raise AssertionError("MatchIcpHandle.result() is not memoized")
+        per_result.append(n)
+    _, n_icp = _syncs(lambda: det.match_icp(f, thr, **kw))
+    bad = [n for n, o in zip(per_result, overflow) if not o and n != 1]
+    if bad or (not overflow[0] and n_icp != 1):
+        raise AssertionError(f"downloads: .result() {per_result} (overflow "
+                             f"{overflow}), match_icp {n_icp}")
+    print(f"sync contract: {len(frames)} match_icp_async dispatches under "
+          f"sync debug mode 'error' made no synchronizing call; behind a "
+          f"sleep kernel every stage returned with the card still busy ("
+          + ", ".join(f"{n} {ms:.2f} ms" for n, (ms, _) in probes.items())
+          + f"); the launch queue held {depth} launches behind it, and the "
+          f"whole dispatch returned in {whole_ms:.1f} ms (card still busy: "
+          f"{whole_busy}); synchronizing calls per .result() {per_result} "
+          f"(cap {cfg['cand_cap']} overflow {overflow}: an overflowing "
+          f"frame takes match + refine_matches_icp), warm match_icp "
+          f"{n_icp}")
+    return {"dispatch_syncs": 0,
+            "stages_behind_sleep_ms": {n: ms for n, (ms, _) in
+                                       probes.items()},
+            "launch_queue_depth": depth,
+            "dispatch_behind_sleep_ms": whole_ms,
+            "dispatch_behind_sleep_busy": whole_busy,
+            "result_syncs": per_result, "overflow": overflow,
+            "match_icp_syncs": n_icp}
+
+
+def production_phase(card: str) -> tuple[list, dict]:
+    """Phase 12: the production path at full width (bench.py's production
+    cells): the committed 1000 x 128 bank, synthetic_scene(1024, 1024,
+    ..., n_instances=4, seed=7), threshold 85, top_c 32, 12 iterations,
+    radius 8, cand_cap 256. The edge field on the card against its CPU
+    twin (edge, has, off bitwise), the octant on every integer gradient
+    against the CPU's; match_icp against the production_icp golden (keys
+    bitwise and in order, poses within POSE_TOL) through the path's
+    kernels, each held against its twin; the sync contract;
+    match_refine_batch against refine_matches_icp; timings and the device
+    kernels a call."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import (
+        Match, _batch_pyramid)
+    from shape_based_matching_tpu_torch.models.icp import (
+        edge_nearest_field, icp_refine_points, match_refine_batch, octant,
+        refine_matches_icp)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows, refine_windows_plain)
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_kernels)
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        config_frame, load_bank_cache, synthetic_scene,
+        synthetic_shape_image)
+
+    golden = json.load(open(PRODUCTION_GOLDEN))
+    cfg = golden["config"]
+    cid = golden["class_id"]
+    pyramids = load_bank_cache(os.path.join(ROOT, cfg["bank"]))
+    if pyramids is None or len(pyramids) != cfg["num_templates"]:
+        raise AssertionError(f"bank {cfg['bank']} missing or stale")
+    det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                   device=DEVICE)
+    det.class_templates[cid] = pyramids
+    banks = det._get_banks(cid)
+    dev = torch.device(DEVICE)
+    frame, _ = config_frame(cfg)
+    src = torch.from_numpy(frame).to(dev)
+    thr_f, weak, radius = cfg["threshold"], det.weak_threshold, cfg["radius"]
+    kw = dict(top_c=cfg["top_c"], iters=cfg["iters"], radius=radius,
+              cand_cap=cfg["cand_cap"])
+
+    # the edge field and the octant against the CPU
+    fc = edge_nearest_field(src, weak, radius)
+    fh = edge_nearest_field(src.cpu(), weak, radius)
+    field_exact = all(torch.equal(fc[i].cpu(), fh[i]) for i in (0, 2, 3))
+    field_dev = {n: float((fc[i].cpu() - fh[i]).abs().max())
+                 for n, i in (("normal", 1), ("subpix", 4))}
+    g = torch.arange(-1020, 1021, dtype=torch.float32)
+    gx, gy = (t.reshape(-1) for t in torch.meshgrid(g, g, indexing="ij"))
+    oct_exact = torch.equal(octant(gx.to(dev), gy.to(dev)).cpu(),
+                            octant(gx, gy))
+    print(f"production: edge field on the card vs its CPU twin: edge, has, "
+          f"off bitwise {field_exact} ({int(fc[2].sum())} edge pixels); "
+          f"normal max |d| {field_dev['normal']:.3g}, subpix "
+          f"{field_dev['subpix']:.3g}; octant of all {gx.numel()} integer "
+          f"gradients in [-1020, 1020]^2 equal to the CPU's: {oct_exact}")
+    if not (field_exact and oct_exact):
+        raise AssertionError("the edge field or the octant differs from "
+                             "the CPU")
+
+    # kernels against their twins at the path's shapes
+    thr = torch.full((), thr_f, dtype=torch.float32, device=dev)
+    sizes = det._level_sizes(frame.shape)
+    T = det.T_at_level
+    lms = _batch_pyramid(src[None], T, det.pyramid_levels, weak)
+    k1_err = _max_abs_err([(quant_spread(src[None], weak, T[0]),
+                            quant_spread_plain(src[None], weak, T[0]))])
+    T1, (w1, h1) = T[1], sizes[1]
+    W1, H1 = w1 // T1, h1 // T1
+    M1 = W1 * H1
+    off = _flat_offsets(banks[1], T1, W1, M1, sizes[1])
+    rmin, _ = _rmin_for_threshold(banks[1].nfeat, thr)
+    k2_args = (lms[1], off, _positions(banks[1], T1, W1, H1), rmin, M1)
+    k2_err = _max_abs_err(zip(coarse_scores(*k2_args),
+                              coarse_scores_plain(*k2_args)))
+    k, x, y, _, valid, n_above = coarse_extract(
+        lms[1], banks[1], T1, sizes[1], thr, cfg["cand_cap"])
+    wx, wy = window_origin(banks[0].width, banks[0].height, T[0], sizes[0],
+                           k, x, y)
+    k3_args = (lms[0], banks[0], T[0], sizes[0], k, wx, wy, valid)
+    k3_err = _max_abs_err(zip(refine_windows(*k3_args),
+                              refine_windows_plain(*k3_args)))
+    K, N = off.shape
+    N0 = banks[0].fx.shape[1]
+    print(f"production: K1 frontend vs plain max_abs_err {k1_err}; coarse "
+          f"K={K} N={N} M={M1} {k2_err}; window refine C={cfg['cand_cap']} "
+          f"N={N0} {k3_err} ({int(valid.sum())} live, n_above "
+          f"{int(n_above[0])})")
+    if k1_err or k2_err or k3_err:
+        raise AssertionError("production: a kernel disagrees with its twin")
+
+    # the path through the kernels: match_icp against the golden
+    kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
+               map_refine, chain_scores)
+    det.match_icp(frame, thr_f, **kw)  # warm
+    for fn in kernels:
+        fn.launches = 0
+    got = det.match_icp(frame, thr_f, **kw)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    need = ["quant_spread", "coarse_scores", "refine_windows"]
+    if golden["overflow"]:
+        need += ["coarse_maps", "map_refine"]
+    if not all(launches[n] for n in need) or launches["chain_scores"]:
+        raise AssertionError(f"production: a kernel of the path was not "
+                             f"launched, or the chain was: {launches}")
+    pose_dev = _pose_check(got, golden["entries"], "match_icp")
+    print(f"production: match_icp equals the production_icp golden "
+          f"({len(got)} entries, {golden['path']} path: cap "
+          f"{cfg['cand_cap']} overflow {golden['overflow']}); largest pose "
+          f"deviation {pose_dev}; launches {launches}")
+    cpu = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                   device="cpu")
+    cpu.class_templates[cid] = pyramids
+    cpu_dev = _pose_check(cpu.match_icp(frame, thr_f, **kw),
+                          golden["entries"], "match_icp on the CPU")
+    print(f"production: match_icp on the CPU (plain twins) equals the "
+          f"golden too; largest pose deviation {cpu_dev}")
+
+    # the sync contract, on device-resident frames
+    templ = synthetic_shape_image(256, 0)
+    stream = [torch.from_numpy(synthetic_scene(
+        cfg["height"], cfg["width"], templ, n_instances=cfg["n_instances"],
+        seed=s)).to(dev) for s in STREAM_SEEDS]
+    sync = _sync_contract(det, cid, stream, cfg)
+
+    # match_refine_batch against refine_matches_icp on its live rows
+    out = match_refine_batch(det, src[None], thr_f, **kw)[cid][0]
+    live = torch.isfinite(out["score"]).cpu().numpy()
+    rows = np.nonzero(live)[0]
+    want = refine_matches_icp(det, src, [
+        Match(int(out["x"][i]), int(out["y"][i]), float(out["score"][i]),
+              cid, int(out["k"][i])) for i in rows], iters=cfg["iters"],
+        radius=radius)
+    icp = {f: getattr(out["icp"], f).cpu().numpy()
+           for f in ("dtheta_deg", "dscale", "tx", "ty", "valid")}
+    if icp["valid"][~live].any():
+        raise AssertionError("match_refine_batch: a dead row is valid")
+    mrb_dev = {f: 0.0 for f in POSE_TOL}
+    for i, w in zip(rows, want):
+        if bool(icp["valid"][i]) != w["valid"]:
+            raise AssertionError("match_refine_batch: valid differs")
+        for f in POSE_TOL:
+            mrb_dev[f] = max(mrb_dev[f], abs(float(icp[f][i]) - w[f]))
+    if any(v >= POSE_TOL[f] for f, v in mrb_dev.items()):
+        raise AssertionError(f"match_refine_batch vs refine_matches_icp: "
+                             f"{mrb_dev}")
+    print(f"production: match_refine_batch agrees with refine_matches_icp "
+          f"on its {len(rows)} live rows (largest deviation {mrb_dev}); "
+          f"{int((~live).sum())} dead rows invalid")
+
+    # timings: mean of warm calls between CUDA events
+    rng = np.random.RandomState(6)  # bench.py _measure_icp's shapes
+    icp_frame = torch.from_numpy(synthetic_scene(
+        1024, 1024, templ, n_instances=4, seed=5)).to(dev)
+    pts = torch.from_numpy(rng.rand(64, 63, 2).astype(np.float32)
+                           * 48).to(dev)
+    origins = torch.from_numpy(rng.randint(64, 900, (64, 2)).astype(
+        np.float32)).to(dev)
+    pv = torch.ones((64, 63), dtype=torch.bool, device=dev)
+    field = edge_nearest_field(icp_frame, 30.0, 8)
+    batch8 = torch.stack(stream + [torch.from_numpy(synthetic_scene(
+        cfg["height"], cfg["width"], templ, n_instances=cfg["n_instances"],
+        seed=s)).to(dev) for s in (8, 9, 10, 12, 14)])
+
+    def stream_loop():
+        prev = None
+        for f in stream:
+            h = det.match_icp_async(f, thr_f, **kw)
+            if prev is not None:
+                prev.result()
+            prev = h
+        prev.result()
+
+    timed = {
+        "edge_field": (lambda: edge_nearest_field(src, weak, radius), 10, 1),
+        "icp_64": (lambda: icp_refine_points(*field[:2], field[3], field[4],
+                                             pts, origins, pv, iters=10,
+                                             radius=8), 10, 1),
+        "match_then_refine": (lambda: refine_matches_icp(
+            det, src, det.match(src, thr_f)[:cfg["top_c"]],
+            iters=cfg["iters"], radius=radius), 10, 1),
+        "match_icp": (lambda: det.match_icp(src, thr_f, **kw), 10, 1),
+        "match_icp_async_3": (stream_loop, 5, len(stream)),
+        "match_refine_batch_b1": (lambda: match_refine_batch(
+            det, src[None], thr_f, **kw), 10, 1),
+        "match_refine_batch_b8": (lambda: match_refine_batch(
+            det, batch8, thr_f, **kw), 3, 8),
+    }
+    times, kernels_a_call, busy_ms = {}, {}, {}
+    for name, (fn, iters, frames) in timed.items():
+        times[name] = _time_ms(fn, iters) / frames
+    for name in ("edge_field", "icp_64", "match_icp"):
+        kern = device_kernels(timed[name][0])
+        kernels_a_call[name] = len(kern) / CALLS
+        busy_ms[name] = sum(ms for _, ms in kern) / CALLS
+    idle = {n: 1 - busy_ms[n] / times[n] for n in busy_ms}
+    print("time production (ms/frame, mean of warm calls between CUDA "
+          "events): " + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
+          + f" on {card}")
+    print(f"production: device kernels a call (torch.profiler, {CALLS} "
+          f"calls) {kernels_a_call}, their device ms a call {busy_ms}, "
+          f"idle share of the timed call {idle}")
+
+    table = (
+        (quant_spread, "frontend.cu", "frontend_pallas.py:108", k1_err,
+         lambda: quant_spread(src[None], weak, T[0]),
+         lambda: quant_spread_plain(src[None], weak, T[0]),
+         f"1024^2 T={T[0]}", _frontend_work(1, 1024, 1024, 1, 8, T[0],
+                                            False, False)),
+        (coarse_scores, "coarse.cu", "similarity_pallas.py:55", k2_err,
+         lambda: coarse_scores(*k2_args),
+         lambda: coarse_scores_plain(*k2_args), f"K={K} N={N} M={M1}",
+         _coarse_work(lms[1], off, M1, counted=True)),
+        (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
+         lambda: refine_windows(*k3_args),
+         lambda: refine_windows_plain(*k3_args),
+         f"C={cfg['cand_cap']} N={N0} ({int(valid.sum())} live)",
+         _refine_work(lms[0], banks[0], k, valid)),
+    )
+    records = []
+    for fn, srcf, replaces, err, kern, plain, shape, work in table:
+        ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        records.append(_record(fn, srcf, replaces, err, launches,
+                               "production", ms, plain_ms, work, shape))
+    return records, {
+        "field_exact": field_exact, "field_dev": field_dev,
+        "octant_exact": oct_exact, "pose_dev": pose_dev,
+        "cpu_pose_dev": cpu_dev,
+        "overflow": golden["overflow"], "launches": launches,
+        "sync": sync, "match_refine_batch_dev": mrb_dev, "ms": times,
+        "device_kernels_a_call": kernels_a_call, "device_busy_ms": busy_ms,
+        "idle_share": idle, "n_entries": len(got)}
+
+
+# phase 13's frontend modes: (color, n_ori, masked)
+PATCH_MODES = {f"{'color' if c else 'gray'}{n}{'_masked' if m else ''}":
+               (c, n, m) for c in (False, True) for n in (8, 16)
+               for m in (False, True)}
+
+
+def patch_phase(scene: np.ndarray, card: str) -> tuple[list, dict]:
+    """Phase 13: patch_2843. The frontend's patch mode against its twin,
+    bitwise, in the eight modes at 1024^2 (the flagship frame and noise,
+    T=4 and T=8), with the count of spread pixels the patch changes; a
+    Detector(patch_2843=True) match of the flagship frame through the
+    kernels against its JAX golden, and whether that list differs from
+    e2e1000's; the kernel's default and patch modes timed side by side."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows)
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        load_bank_cache)
+
+    dev = torch.device(DEVICE)
+    weak = 30.0
+    noise = np.random.RandomState(7).randint(0, 256, scene.shape,
+                                             dtype=np.uint8)
+    gray = np.stack([scene, noise])
+    masks = torch.from_numpy(np.stack([
+        (np.random.RandomState(s).rand(*scene.shape) > 0.25).astype(
+            np.uint8) * 255 for s in (4, 5)])).to(dev)
+    modes = {}
+    for mode, (color, n_ori, masked) in PATCH_MODES.items():
+        frames = torch.from_numpy(_bgr(gray) if color else gray).to(dev)
+        if color:
+            frames = frames.permute(0, 3, 1, 2).contiguous()
+        m = masks if masked else None
+        err, changed = 0, 0
+        for T in (4, 8):
+            got = quant_spread(frames, weak, T, n_ori, m, patch_2843=True)
+            err = max(err, _max_abs_err([(got, quant_spread_plain(
+                frames, weak, T, n_ori, m, patch_2843=True))]))
+            changed += int((_i64(got) != _i64(quant_spread(
+                frames, weak, T, n_ori, m))).sum())
+        modes[mode] = {"max_abs_err": err, "changed_pixels": changed}
+    print("K1 frontend patch_2843 vs plain (1024^2, scene + noise, T=4 "
+          "and T=8): " + ", ".join(
+              f"{k} err {v['max_abs_err']} ({v['changed_pixels']} spread "
+              f"pixels differ from the default mode)"
+              for k, v in modes.items()))
+    if any(v["max_abs_err"] for v in modes.values()):
+        raise AssertionError("a patch_2843 frontend mode disagrees with "
+                             "its twin")
+
+    golden = json.load(open(PATCH_GOLDEN))
+    cfg = golden["config"]
+    det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                   patch_2843=True, device=DEVICE)
+    det.class_templates[golden["class_id"]] = load_bank_cache(
+        os.path.join(ROOT, cfg["bank"]))
+    det.match(scene, cfg["threshold"])  # warm
+    kernels = (quant_spread, coarse_scores, refine_windows)
+    for fn in kernels:
+        fn.launches = 0
+    got = det.match(scene, cfg["threshold"])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    if not all(launches.values()):
+        raise AssertionError(f"patch_2843: a kernel was not launched: "
+                             f"{launches}")
+    if _keys(got) != golden["matches"]:
+        raise AssertionError(f"patch_2843: the flagship list differs from "
+                             f"its JAX golden ({len(got)} vs "
+                             f"{len(golden['matches'])})")
+    default = json.load(open(GOLDEN))["matches"]
+    differs = _keys(got) != default
+    print(f"patch_2843: Detector(patch_2843=True) on the flagship frame "
+          f"equals its JAX golden ({len(got)} matches; e2e1000 has "
+          f"{len(default)}, lists differ: {differs}); launches {launches}")
+
+    one = torch.from_numpy(scene[None]).to(dev)
+    t_default = _time_ms(lambda: quant_spread(one, weak, 4), 30)
+    t_patch = _time_ms(lambda: quant_spread(one, weak, 4, patch_2843=True),
+                       30)
+    plain_ms = _time_ms(lambda: quant_spread_plain(one, weak, 4,
+                                                   patch_2843=True), 5)
+    print(f"time quant_spread 1024^2 T=4 B=1: default mode {t_default:.4f} "
+          f"ms, patch_2843 mode {t_patch:.4f} ms, patch twin {plain_ms:.4f} "
+          f"ms on {card}")
+    record = _record(quant_spread, "frontend.cu", "frontend_pallas.py:108",
+                     max(v["max_abs_err"] for v in modes.values()),
+                     launches, "patch_2843", t_patch, plain_ms,
+                     _frontend_work(1, 1024, 1024, 1, 8, 4, False, False),
+                     "patch_2843 gray8 1024^2 T=4")
+    return [record], {"modes": modes, "launches": launches,
+                      "n_matches": len(got), "differs_from_e2e1000": differs,
+                      "default_ms": t_default, "patch_ms": t_patch,
+                      "patch_plain_ms": plain_ms}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1563,6 +2111,17 @@ def main() -> None:
     print(f"seconds: train snapshots {t1 - t0:.1f}, C++ goldens "
           f"{t2 - t1:.1f}, batched sweep {t3 - t2:.1f}, multiclass "
           f"{t4 - t3:.1f}")
+
+    # 12-13. the production refine path and patch_2843
+    prod_records, report["production"] = production_phase(card)
+    records += prod_records
+    t5 = time.perf_counter()
+    patch_records, report["patch_2843"] = patch_phase(scene, card)
+    records += patch_records
+    t6 = time.perf_counter()
+    report["phase_seconds_12_13"] = {"production": t5 - t4,
+                                     "patch_2843": t6 - t5}
+    print(f"seconds: production {t5 - t4:.1f}, patch_2843 {t6 - t5:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -9,6 +9,7 @@ reference it is held against bit for bit. It imports torch and never jax.
     tid = det.add_template(train_img, "part", mask)
     det.add_templates_rotate("part", tid, range(1, 360), (cx, cy))
     matches = det.match(frame, threshold=85.0)
+    poses = det.match_icp(frame, threshold=85.0, top_c=32)  # subpixel
 
 On CPU tensors every kernel wrapper runs its plain PyTorch twin; on CUDA
 tensors it launches the kernel (built from ``csrc/`` with nvcc at first
@@ -17,5 +18,20 @@ the host C++ compiler at first use.
 """
 
 from .models.detector import Detector, Match
+from .models.icp import (IcpResult, MatchIcpHandle, match_icp,
+                         match_icp_async, match_refine_batch,
+                         refine_matches_icp)
+from .models.refine import RefinedPose, refine_detections
 
-__all__ = ["Detector", "Match"]
+__all__ = [
+    "Detector",
+    "Match",
+    "RefinedPose",
+    "refine_detections",
+    "refine_matches_icp",
+    "match_icp",
+    "match_icp_async",
+    "match_refine_batch",
+    "MatchIcpHandle",
+    "IcpResult",
+]

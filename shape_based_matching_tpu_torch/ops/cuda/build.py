@@ -47,10 +47,10 @@ _F = ctypes.c_float
 
 # C signatures: name -> argtypes (every entry returns the CUDA error code)
 SIGNATURES = {
-    # img, mask, out, quant, B, H, W, T, RS, n_ori, channels, thr_sq,
-    # stream (mask and quant may be null)
-    "sbm_quant_spread": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _P),
+    # img, mask, out, quant, B, H, W, T, RS, n_ori, channels, patch_2843,
+    # thr_sq, stream (mask and quant may be null)
+    "sbm_quant_spread": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P),
     # x, y, out, n, stream: frontend.cu's fastAtan2 alone (tests)
     "sbm_phase_deg": (_P, _P, _P, _I, _P),
     # lmflat, lm_stride, off, pos, rmin, S, cnt, B, K, N, M, G, chunk,

@@ -1,13 +1,15 @@
 """Kernels 1 and 2: the fused frontend, ``csrc/frontend.cu``.
 
-``quant_spread(imgs, weak_threshold, T, n_ori, masks, with_quant)`` maps
-uint8 frames -- gray ``[B, H, W]`` or planar color ``[B, 3, H, W]`` --
-to their T x T-spread orientation planes ``[B, H, W]``, uint8 for 8
-orientations and uint16 for 16: blur, Sobel (color: the channel of
-largest |grad|^2), fastAtan2, vote-quantize, mask and spread in one
-launch. ``masks`` (``[B, H, W]`` uint8) zeroes the quantized code where it
-is 0, before the spread; ``with_quant`` also returns the pre-spread
-quantized plane. It replaces the TPU kernel
+``quant_spread(imgs, weak_threshold, T, n_ori, masks, with_quant,
+patch_2843)`` maps uint8 frames -- gray ``[B, H, W]`` or planar color
+``[B, 3, H, W]`` -- to their T x T-spread orientation planes ``[B, H,
+W]``, uint8 for 8 orientations and uint16 for 16: blur, Sobel (color: the
+channel of largest |grad|^2), fastAtan2, vote-quantize, mask and spread
+in one launch. ``masks`` (``[B, H, W]`` uint8) zeroes the quantized code
+where it is 0, before the spread; ``with_quant`` also returns the
+pre-spread quantized plane; ``patch_2843`` takes the opencv_contrib #2843
+vote (an interior pixel at or under the weak threshold casts no vote).
+It replaces the TPU kernel
 ``shape_based_matching_tpu/ops/pallas/frontend_pallas.py::_quant_spread_kernel``
 as run by ``_quant_spread_batched_impl`` and ``_quant_spread_impl``.
 
@@ -54,12 +56,12 @@ def frontend_split(B: int, H: int, W: int, T: int) -> int:
 
 def quant_spread_plain(imgs: torch.Tensor, weak_threshold: float, T: int,
                        n_ori: int = 8, masks: torch.Tensor | None = None,
-                       with_quant: bool = False):
+                       with_quant: bool = False, patch_2843: bool = False):
     """Plain twin: spread(quantized_orientations_{gray,color}(...).angle
     masked where masks == 0, T)."""
     quantize = (quantized_orientations_color if imgs.dim() == 4
                 else quantized_orientations_gray)
-    angle = quantize(imgs, weak_threshold, n_ori).angle
+    angle = quantize(imgs, weak_threshold, n_ori, patch_2843).angle
     quant = to_i32(angle)
     if masks is not None:
         quant = torch.where(masks != 0, quant, 0)
@@ -90,14 +92,14 @@ def _check(imgs, masks, T, n_ori) -> None:
 
 def quant_spread(imgs: torch.Tensor, weak_threshold: float, T: int,
                  n_ori: int = 8, masks: torch.Tensor | None = None,
-                 with_quant: bool = False):
+                 with_quant: bool = False, patch_2843: bool = False):
     """uint8 [B, H, W] or [B, 3, H, W] frames -> [B, H, W] spread planes
     (uint8 for 8 orientations, uint16 for 16), or (spread, quantized)
     with `with_quant`."""
     _check(imgs, masks, T, n_ori)
     if imgs.device.type == "cpu":
         return quant_spread_plain(imgs, weak_threshold, T, n_ori, masks,
-                                  with_quant)
+                                  with_quant, patch_2843)
     if not imgs.is_contiguous() or (masks is not None
                                     and not masks.is_contiguous()):
         raise ValueError("frames and masks must be contiguous")
@@ -111,7 +113,7 @@ def quant_spread(imgs: torch.Tensor, weak_threshold: float, T: int,
             imgs.data_ptr(), None if masks is None else masks.data_ptr(),
             out.data_ptr(), None if quant is None else quant.data_ptr(),
             B, H, W, T, frontend_split(B, H, W, T), n_ori,
-            3 if imgs.dim() == 4 else 1,
+            3 if imgs.dim() == 4 else 1, int(patch_2843),
             weak_threshold_sq(weak_threshold),
             build.stream_ptr(imgs.device)), "sbm_quant_spread")
         quant_spread.launches += 1

@@ -46,7 +46,8 @@ def weak_threshold_sq(weak_threshold: float) -> float:
 
 
 def hysteresis_quantize(magnitude: torch.Tensor, angle_deg: torch.Tensor,
-                        threshold_sq: float, n_ori: int = 8) -> torch.Tensor:
+                        threshold_sq: float, n_ori: int = 8,
+                        patch_2843: bool = False) -> torch.Tensor:
     """n_ori-bin quantization with 3x3 majority vote (line2Dup.cpp:218-311;
     16 bins as line2Dup_16bit_ori.cpp:216-297).
 
@@ -56,7 +57,11 @@ def hysteresis_quantize(magnitude: torch.Tensor, angle_deg: torch.Tensor,
     3. every in-image pixel votes its bucket over its 3x3 neighbourhood
        (bins 0-7 in one nibble-packed word, 8-15 in a second); the bin
        with most votes (lowest index wins ties) needs >= 5 of 9.
-    Output is 1 << bin (uint8 for 8 bins, uint16 for 16), else 0."""
+    Output is 1 << bin (uint8 for 8 bins, uint16 for 16), else 0.
+
+    `patch_2843` (opencv_contrib #2843, line2Dup.cpp:9,239-257): an
+    interior pixel with magnitude <= threshold_sq casts no vote; pixels
+    of the frame's edge still vote bin 0 whatever their magnitude."""
     if n_ori not in (8, 16):
         raise ValueError(f"n_ori={n_ori}: 8 or 16 orientations")
     h, w = angle_deg.shape[-2:]
@@ -67,6 +72,9 @@ def hysteresis_quantize(magnitude: torch.Tensor, angle_deg: torch.Tensor,
     cols = torch.arange(w, device=dev)[None, :]
     border = (rows > 0) & (rows < h - 1) & (cols > 0) & (cols < w - 1)
     q = torch.where(border, q & (n_ori - 1), torch.zeros_like(q))
+    thr = torch.tensor(threshold_sq, dtype=torch.float32, device=dev)
+    votes = ~(border & (magnitude <= thr)) if patch_2843 else torch.ones_like(
+        border)
 
     def vote_word(in_word):
         packed = torch.where(in_word, torch.ones_like(q) << (4 * (q % 8)),
@@ -75,8 +83,8 @@ def hysteresis_quantize(magnitude: torch.Tensor, angle_deg: torch.Tensor,
         return sum(p[..., i:i + h, j:j + w]
                    for i in range(3) for j in range(3))
 
-    words = ((vote_word(torch.ones_like(border)),) if n_ori == 8
-             else (vote_word(q < 8), vote_word(q >= 8)))
+    words = ((vote_word(votes),) if n_ori == 8
+             else (vote_word(votes & (q < 8)), vote_word(votes & (q >= 8))))
 
     # first max wins (the C++ scans bins ascending with strict >)
     max_votes = torch.zeros_like(words[0])
@@ -88,7 +96,6 @@ def hysteresis_quantize(magnitude: torch.Tensor, angle_deg: torch.Tensor,
         best_bin = torch.where(better, torch.full_like(best_bin, b),
                                best_bin)
 
-    thr = torch.tensor(threshold_sq, dtype=torch.float32, device=dev)
     ok = border & (magnitude > thr) & (max_votes >= 5)
     out = torch.where(ok, torch.ones_like(best_bin) << best_bin,
                       torch.zeros_like(best_bin))
@@ -96,7 +103,8 @@ def hysteresis_quantize(magnitude: torch.Tensor, angle_deg: torch.Tensor,
 
 
 def quantized_orientations_gray(src: torch.Tensor, weak_threshold: float,
-                                n_ori: int = 8) -> QuantizedGradients:
+                                n_ori: int = 8, patch_2843: bool = False
+                                ) -> QuantizedGradients:
     """Gray path of quantizedOrientations (line2Dup.cpp:322-330) on
     [..., H, W] uint8 frames."""
     smoothed = gaussian_blur7_u8(src)
@@ -105,7 +113,8 @@ def quantized_orientations_gray(src: torch.Tensor, weak_threshold: float,
     magnitude = dx * dx + dy * dy
     ang = phase_deg(dx, dy)
     quant = hysteresis_quantize(magnitude, ang,
-                                weak_threshold_sq(weak_threshold), n_ori)
+                                weak_threshold_sq(weak_threshold), n_ori,
+                                patch_2843)
     return QuantizedGradients(magnitude, quant, ang)
 
 
@@ -123,7 +132,8 @@ def pick_channel(dx3: torch.Tensor, dy3: torch.Tensor):
 
 
 def quantized_orientations_color(src: torch.Tensor, weak_threshold: float,
-                                 n_ori: int = 8) -> QuantizedGradients:
+                                 n_ori: int = 8, patch_2843: bool = False
+                                 ) -> QuantizedGradients:
     """Color path of quantizedOrientations (line2Dup.cpp:331-401) on planar
     [..., 3, H, W] uint8 frames: per-channel blur and Sobel, then the
     max-|grad|^2 channel (``pick_channel``)."""
@@ -133,5 +143,20 @@ def quantized_orientations_color(src: torch.Tensor, weak_threshold: float,
     magnitude = mag.to(torch.float32)
     ang = phase_deg(dx.to(torch.float32), dy.to(torch.float32))
     quant = hysteresis_quantize(magnitude, ang,
-                                weak_threshold_sq(weak_threshold), n_ori)
+                                weak_threshold_sq(weak_threshold), n_ori,
+                                patch_2843)
     return QuantizedGradients(magnitude, quant, ang)
+
+
+def quantized_orientations(src: torch.Tensor, weak_threshold: float,
+                           n_ori: int = 8) -> QuantizedGradients:
+    """Dispatch one uint8 frame on its shape, as modality->process does
+    (line2Dup.cpp:313): gray [H, W], or BGR [H, W, 3] (moved to planar
+    channels for ``quantized_orientations_color``)."""
+    if src.dim() == 2:
+        return quantized_orientations_gray(src, weak_threshold, n_ori)
+    if src.dim() == 3 and src.shape[-1] == 3:
+        return quantized_orientations_color(src.permute(2, 0, 1),
+                                            weak_threshold, n_ori)
+    raise ValueError(f"expected [H,W] gray or [H,W,3] color, got "
+                     f"{tuple(src.shape)}")

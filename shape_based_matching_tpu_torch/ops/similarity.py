@@ -107,8 +107,8 @@ def _rmin_for_threshold(nfeat: torch.Tensor, threshold: torch.Tensor):
     boundary), and the f32 normalizer 4*nfeat. `threshold` is a float32
     0-d tensor."""
     t4n = (4 * nfeat).to(torch.float32)
-    approx = threshold * t4n / torch.tensor(100.0, dtype=torch.float32,
-                                             device=t4n.device)
+    approx = threshold * t4n / torch.full((), 100.0, dtype=torch.float32,
+                                           device=t4n.device)
     base = torch.floor(approx).to(torch.int32) - 1
     probes = (base[:, None] + torch.arange(4, dtype=torch.int32,
                                            device=t4n.device)).clamp(min=0)

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from shape_based_matching_tpu_torch import Detector
+from shape_based_matching_tpu_torch import Detector, refine_detections
 from shape_based_matching_tpu_torch.ops.chain_plan import (
     ChainPlan, plan_chain)
 from shape_based_matching_tpu_torch.ops.cuda.chain import (
@@ -791,3 +791,90 @@ def test_merged_match_on_card_equals_cpu(dev):
             frames, 75.0, ["wide", "narrow"], cand_cap=8)])
         assert ("narrow", "wide") in det._merged
     assert got[0] == got[1] and all(got[0])
+
+
+@pytest.mark.parametrize("mode", ["gray8", "gray16", "color8", "color16",
+                                  "masked_gray8", "masked_color16",
+                                  "with_quant_masked_gray16",
+                                  "with_quant_color8"])
+@pytest.mark.parametrize("h,w", [(37, 53), (256, 256)])
+@pytest.mark.parametrize("T", [1, 4, 8])
+def test_frontend_kernel_patch2843_equals_plain(dev, mode, h, w, T):
+    """The kernel's patch_2843 mode (weak interior pixels cast no vote)
+    against its twin: the spread plane and, where asked, the quantized
+    one."""
+    color = "color" in mode
+    n_ori = 16 if "16" in mode else 8
+    rng = np.random.RandomState(h + w + T + 1)
+    gray = np.stack([rng.randint(0, 256, (h, w), dtype=np.uint8),
+                     synthetic.synthetic_scene(
+                         h, w, synthetic.synthetic_shape_image(24, T),
+                         n_instances=2, seed=T)])
+    img = (np.stack([gray, np.roll(gray, 1, axis=2), 255 - gray], axis=1)
+           if color else gray)
+    frames = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+    masks = torch.from_numpy(((rng.rand(2, h, w) > 0.25) * 255).astype(
+        np.uint8)).to(dev) if "masked" in mode else None
+    wq = "with_quant" in mode
+    got = quant_spread(frames, 30.0, T, n_ori, masks, wq, patch_2843=True)
+    torch.cuda.synchronize()
+    want = quant_spread_plain(frames, 30.0, T, n_ori, masks, wq,
+                              patch_2843=True)
+    for g, e in zip(got if wq else (got,), want if wq else (want,)):
+        assert torch.equal(to_i32(g), to_i32(e))
+
+
+def test_edge_field_on_card_equals_cpu(dev):
+    """The ICP edge field on the card: edge, has and off equal the CPU's
+    bit for bit; normals and subpixel offsets to float32 rounding."""
+    from shape_based_matching_tpu_torch.models.icp import edge_nearest_field
+
+    frame = synthetic.synthetic_scene(
+        240, 320, synthetic.synthetic_shape_image(96, 1), n_instances=3,
+        seed=2)
+    src = torch.from_numpy(frame)
+    got = edge_nearest_field(src.to(dev), 30.0, 8)
+    want = edge_nearest_field(src, 30.0, 8)
+    for i in (0, 2, 3):
+        assert torch.equal(got[i].cpu(), want[i])
+    for i in (1, 4):
+        assert (got[i].cpu() - want[i]).abs().max() <= 2.0 ** -21
+
+
+def test_match_icp_on_card_equals_cpu(dev):
+    """match_icp, match_refine_batch and refine_detections on the card:
+    the same match keys as on the CPU, poses to float32 rounding."""
+    frame = synthetic.synthetic_scene(
+        256, 256, synthetic.synthetic_shape_image(96, 0), n_instances=2,
+        seed=4)
+    res = {}
+    for device in ("cpu", dev):
+        det = Detector(num_features=48, device=device)
+        det.add_template(synthetic.synthetic_shape_image(96, 0), "c")
+        det.add_templates_rotate("c", 0, [15.0 * i for i in range(1, 24)],
+                                 (48.0, 48.0))
+        icp = det.match_icp(frame, 70.0, top_c=8)
+        batch = refine_matches_icp_batch(det, frame)
+        ref = refine_detections(det, frame, det.match(frame, 70.0)[:4])
+        res[device] = (icp, batch, ref)
+    (ci, cb, cr), (gi, gb, gr) = res["cpu"], res[dev]
+    assert ci and [r["match"] for r in ci] == [r["match"] for r in gi]
+    for a, b in zip(ci, gi):
+        assert a["valid"] == b["valid"] and a["inliers"] == b["inliers"]
+        assert abs(a["tx"] - b["tx"]) < 1e-2 and abs(a["ty"] - b["ty"]) < 1e-2
+        assert abs(a["dtheta_deg"] - b["dtheta_deg"]) < 1e-3
+    assert torch.equal(cb[0], gb[0].cpu())
+    assert (cb[1] - gb[1].cpu()).abs().max() < 1e-2
+    assert [r["match"] for r in cr] == [r["match"] for r in gr]
+    for a, b in zip(cr, gr):
+        assert abs(a["x"] - b["x"]) < 1e-3 and abs(a["y"] - b["y"]) < 1e-3
+
+
+def refine_matches_icp_batch(det, frame):
+    """match_refine_batch's selection (k, x, y) and poses (tx, ty) at
+    B=1."""
+    from shape_based_matching_tpu_torch import match_refine_batch
+
+    out = match_refine_batch(det, frame[None], 70.0, top_c=8)["c"][0]
+    return (torch.stack([out["k"], out["x"], out["y"]]),
+            torch.stack([out["icp"].tx, out["icp"].ty]))

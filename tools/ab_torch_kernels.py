@@ -10,7 +10,11 @@ against its plain twin first:
 
 * ``quant_spread`` (frontend.cu) on the flagship frames: 1024^2 at T=4 and
   their 512^2 pyrDown at T=8, gray 8 orientations at B=1 and B=8, and
-  color 8 orientations at 1024^2, B=1;
+  color 8 orientations at 1024^2, B=1; where the checkout has the
+  opencv_contrib #2843 mode, gray 8 orientations at 1024^2, B=1 and B=8,
+  in that mode too. A digest of each frontend kernel's SASS (cuobjdump;
+  instruction count and a hash of the text, keyed by orientations,
+  channels and mode) shows whether two checkouts compiled a mode alike;
 * ``chain_scores`` (chain.cu) on the 10,000-template bank's coarse level
   (512^2, T=8, K=10000, M=4096) at B=1 and B=8, threshold 85;
 * ``refine_from_maps`` (map_refine.cu and what the checkout runs around
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -128,6 +133,32 @@ def _host_split(fn, lib, entry: str, iters: int) -> dict:
             "python_ms": host - entry_ms}
 
 
+def _frontend_sass(lib_path: str, nvcc: str) -> dict:
+    """{"<orientations>x<channels>[+patch]": {"instructions", "sha"}} of
+    every quant_spread_kernel instantiation in the library, from
+    cuobjdump's SASS without the function's name line."""
+    import hashlib
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        m = re.search(r"quant_spread_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?E",
+                      name)
+        if m is None:
+            continue
+        key = f"{m[1]}x{m[2]}" + ("+patch" if m[3] == "1" else "")
+        body = body.split("..........")[0]
+        out[key] = {"instructions": len(re.findall(r"/\*[0-9a-f]{4,}\*/",
+                                                   body)),
+                    "sha": hashlib.sha256(body.encode()).hexdigest()[:16]}
+    return out
+
+
 def _same_valid(got, want) -> bool:
     """Two refine steps' (k, x, y, score, valid) agree: valid everywhere,
     the rest (score bits) on the valid candidates."""
@@ -217,6 +248,18 @@ def main() -> None:
         run("frontend.cu", name,
             lambda imgs=imgs, T=T: quant_spread(imgs, 30.0, T),
             lambda imgs=imgs, T=T: quant_spread_plain(imgs, 30.0, T))
+    if "patch_2843" in inspect.signature(quant_spread).parameters:
+        for name, imgs in (("gray8 1024^2 T=4 B=1 patch_2843", frames[:1]),
+                           ("gray8 1024^2 T=4 B=8 patch_2843", frames)):
+            run("frontend.cu", name,
+                lambda imgs=imgs: quant_spread(imgs, 30.0, 4,
+                                               patch_2843=True),
+                lambda imgs=imgs: quant_spread_plain(imgs, 30.0, 4,
+                                                     patch_2843=True))
+    sass = _frontend_sass(build.library_path(), build._nvcc())
+    print("frontend.cu SASS: " + ", ".join(
+        f"{k} {v['instructions']} instructions sha {v['sha']}"
+        for k, v in sorted(sass.items())))
 
     pyr = synthetic.load_bank_cache(os.path.join(
         root, "bench_banks", os.path.basename(
@@ -269,7 +312,7 @@ def main() -> None:
             lambda window=window: window, check=_same_valid,
             device=True)
     out = {"root": root, "card": f"{torch.cuda.get_device_name(0)} [{smi}]",
-           "rows": rows}
+           "rows": rows, "frontend_sass": sass}
     print(json.dumps(out))
     if args.out:
         with open(args.out, "w") as f:

@@ -25,9 +25,21 @@ from ``bench_banks/``:
   slots at the coarse level), on a seed-11 scene of its block-noise
   template, threshold 88;
 * ``wide8191``: the dense 8 x 8191 bank, template size 768 (9126 slots
-  at level 0, 3073 at the coarse level), likewise at threshold 70.
+  at level 0, 3073 at the coarse level), likewise at threshold 70;
+* ``e2e1000_patch2843``: the flagship with ``Detector(patch_2843=True)``
+  (opencv_contrib #2843: weak pixels cast no orientation votes).
 
-``tests/test_torch_detector.py`` holds the port's CPU path, and
+One more file holds the production path, match then subpixel pose
+refinement: ``production_icp`` writes ``torch_port_production_icp.json``,
+``Detector.match_icp(frame, 85.0, top_c=32)`` of the JAX package on the
+committed 1000 x 128 bank and ``synthetic_scene(1024, 1024, ...,
+n_instances=4, seed=7)`` (``bench.py``'s production cells): each entry's
+match (template_id, x, y, similarity float32 bits) and pose fields, and
+whether the class overflowed the candidate cap of 256 (then the list
+comes from ``match`` and ``refine_matches_icp``, the overflow fallback).
+
+``tests/test_torch_detector.py``, ``tests/test_torch_icp.py`` and
+``tests/test_torch_patch2843.py`` hold the port's CPU path, and
 ``chip_smoke.py`` the CUDA path, to these files.
 
     JAX_PLATFORMS=cpu python tools/gen_torch_port_golden.py [name ...]
@@ -47,6 +59,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def golden_path(name: str) -> str:
+    if name == "production_icp":
+        return os.path.join(ROOT, "tests", "goldens",
+                            "torch_port_production_icp.json")
     return os.path.join(ROOT, "tests", "goldens",
                         f"torch_port_{name}_matches.json")
 
@@ -92,7 +107,12 @@ CONFIGS = {
     # threshold 70: at the JAX bench's 88 the list is empty (best 74.42)
     "wide8191": _config(8, 8191, size=768, dense=True,
                         **dict(_WIDE, threshold=70.0)),
+    "e2e1000_patch2843": dict(_config(1000), patch_2843=True),
 }
+# bench.py's production cells (_measure_production_*): match, then the
+# sim2 ICP of the top 32 candidates
+PRODUCTION = dict(_config(1000, 128, scene_seed=7), top_c=32, iters=12,
+                  radius=8, cand_cap=256)
 
 
 def frame_and_mask(cfg: dict, synthetic) -> tuple:
@@ -115,6 +135,44 @@ def frame_and_mask(cfg: dict, synthetic) -> tuple:
     return f, mask
 
 
+def _detector(name: str, cfg: dict, Detector, synthetic):
+    pyramids = synthetic.load_bank_cache(os.path.join(ROOT, cfg["bank"]))
+    if pyramids is None or len(pyramids) != cfg["num_templates"]:
+        raise SystemExit(f"{name}: bank {cfg['bank']} missing or stale")
+    det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
+                   num_orientations=cfg["num_orientations"],
+                   use_pallas=False,
+                   patch_2843=cfg.get("patch_2843", False))
+    det.class_templates["bench"] = pyramids
+    return det
+
+
+def _match_row(m) -> list:
+    return [m.template_id, m.x, m.y,
+            int(np.float32(m.similarity).view(np.uint32))]
+
+
+def production_icp(Detector, synthetic) -> dict:
+    """The JAX package's match_icp at the production configuration, with
+    the class's overflow flag at the candidate cap."""
+    cfg = PRODUCTION
+    det = _detector("production_icp", cfg, Detector, synthetic)
+    frame, _ = frame_and_mask(cfg, synthetic)
+    packed = det.match_batch(frame[None], cfg["threshold"],
+                             cand_cap=cfg["cand_cap"], as_matches=False)
+    overflow = bool(np.asarray(packed["bench"][5])[0])
+    got = det.match_icp(frame, cfg["threshold"], top_c=cfg["top_c"],
+                        iters=cfg["iters"], radius=cfg["radius"],
+                        cand_cap=cfg["cand_cap"])
+    entries = [{"match": _match_row(r["match"]),
+                **{f: r[f] for f in ("dtheta_deg", "dscale", "tx", "ty",
+                                     "rmse", "inliers", "valid")}}
+               for r in got]
+    return {"config": cfg, "class_id": "bench", "overflow": overflow,
+            "path": "fallback" if overflow else "packed",
+            "entries": entries}
+
+
 def main(names) -> None:
     sys.path.insert(0, ROOT)
     import jax
@@ -123,21 +181,21 @@ def main(names) -> None:
     from shape_based_matching_tpu import Detector
     from shape_based_matching_tpu.utils import synthetic
 
-    for name in names or CONFIGS:
+    for name in names or [*CONFIGS, "production_icp"]:
+        out = golden_path(name)
+        if name == "production_icp":
+            data = production_icp(Detector, synthetic)
+            with open(out, "w") as f:
+                json.dump(data, f, indent=0)
+                f.write("\n")
+            print(f"{name}: {len(data['entries'])} entries, overflow "
+                  f"{data['overflow']} -> {out}")
+            continue
         cfg = CONFIGS[name]
-        pyramids = synthetic.load_bank_cache(os.path.join(ROOT, cfg["bank"]))
-        if pyramids is None or len(pyramids) != cfg["num_templates"]:
-            raise SystemExit(f"{name}: bank {cfg['bank']} missing or stale")
-        det = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
-                       num_orientations=cfg["num_orientations"],
-                       use_pallas=False)
-        det.class_templates["bench"] = pyramids
+        det = _detector(name, cfg, Detector, synthetic)
         frame, mask = frame_and_mask(cfg, synthetic)
         matches = det.match(frame, cfg["threshold"], mask=mask)
-        rows = [[m.template_id, m.x, m.y,
-                 int(np.float32(m.similarity).view(np.uint32))]
-                for m in matches]
-        out = golden_path(name)
+        rows = [_match_row(m) for m in matches]
         with open(out, "w") as f:
             json.dump({"config": cfg, "class_id": "bench",
                        "matches": rows}, f, indent=0)
