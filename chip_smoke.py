@@ -92,7 +92,19 @@ Phases, each reported on its own line:
    a mask), ``Detector(patch_2843=True)`` on the flagship frame against
    its JAX golden through the kernels, and the frontend's default and
    patch modes timed side by side. The seconds of phases 12-13 are
-   printed.
+   printed;
+14. the CLI and the model directory, in a temporary directory: phase 8's
+   rot1000x63, rot1000x128 and rot10000x63 written as a model directory
+   and loaded by ``get_instance`` (seconds to write and read each class;
+   equal field for field; the flagship and dense goldens from disk),
+   ``cli match`` on the flagship frame and the production stream as PNGs
+   (rot1000x63, and rot1000x128 with --icp: lines equal to the in-memory
+   path's, poses within the production tolerance, the CSV's stage ms
+   beside the in-memory match), ``cli train`` of a 12-render sweep equal
+   to ``add_templates``, ``train-db`` and ``match-db`` on a synthetic tag
+   database, ``--trace DIR info`` (a small configuration) and ``info
+   --dispatch``; each path
+   launches every kernel it needs. The phase's seconds are printed.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -108,6 +120,7 @@ full report goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1367,21 +1380,6 @@ def _pose_check(got: list, entries: list, what: str) -> dict:
     return dev
 
 
-def _syncs(fn):
-    """(fn(), the synchronizing CUDA calls torch made in it), counted by
-    torch's sync debug mode as warnings."""
-    import warnings
-
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
-
-
 SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep: about 0.5 s on the card
 
 
@@ -1431,6 +1429,8 @@ def _sync_contract(det, cid: str, frames: list, cfg: dict) -> dict:
     the cap (an overflowing one takes the two-download fallback)."""
     from shape_based_matching_tpu_torch.models.icp import (
         _pack_refined, edge_nearest_field, refine_packed_candidates)
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        sync_calls as _syncs)
 
     kw = dict(top_c=cfg["top_c"], iters=cfg["iters"], radius=cfg["radius"],
               cand_cap=cfg["cand_cap"])
@@ -1858,6 +1858,421 @@ def patch_phase(scene: np.ndarray, card: str) -> tuple[list, dict]:
                       "patch_plain_ms": plain_ms}
 
 
+# phase 14: the classes of phase 8 in the model directory, and the frames
+# the CLI matches (the flagship frame, then the production stream)
+CLI_CLASSES = ("rot1000x63", "rot1000x128", "rot10000x63")
+CLI_SEEDS = (3,) + STREAM_SEEDS
+# printed-digit rounding of the CLI's icp[...] fields on top of POSE_TOL
+CLI_ICP_TOL = (POSE_TOL["tx"] + 5e-3, POSE_TOL["ty"] + 5e-3,
+               POSE_TOL["dtheta_deg"] + 5e-4, POSE_TOL["dscale"] + 5e-5)
+
+
+def _cli(argv: list) -> tuple[list, float]:
+    """(printed lines, seconds) of ``cli.main(argv)``, which must return
+    0."""
+    import io
+
+    from shape_based_matching_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _read_timer():
+    """Seconds each class read inside the block took, file to templates
+    (``load_opencv_yaml`` of its file, then ``read_class``), keyed by
+    class id: the detector module's two calls, wrapped while the block
+    runs."""
+    from shape_based_matching_tpu_torch.models import detector as dm
+
+    load, read = dm.load_opencv_yaml, dm.Detector.read_class
+    seconds, start = {}, []
+
+    def timed_load(path):
+        start.append(time.perf_counter())
+        return load(path)
+
+    def timed_read(self, doc, class_id_override=""):
+        cid = read(self, doc, class_id_override)
+        seconds[cid] = time.perf_counter() - start[-1]
+        return cid
+
+    dm.load_opencv_yaml, dm.Detector.read_class = timed_load, timed_read
+    try:
+        yield seconds
+    finally:
+        dm.load_opencv_yaml, dm.Detector.read_class = load, read
+
+
+def _registry(cids, model_dir: str) -> None:
+    """The CLI's registry.json for classes trained outside it."""
+    with open(os.path.join(model_dir, "registry.json"), "w") as f:
+        json.dump({c: {"source_image": "", "fiducial_image": "",
+                       "infos": []} for c in cids}, f, indent=2)
+
+
+def _match_lines(det, cid: str, name: str, frame: np.ndarray,
+                 icp: bool) -> tuple[list, list]:
+    """What ``cli match --top-k 1000`` prints for a frame, from the
+    in-memory path (``Detector.match``, ``nms_boxes`` and, with `icp`,
+    ``refine_matches_icp``): the lines without the match time and icp
+    fields, and the poses of the lines that carry one."""
+    from shape_based_matching_tpu_torch.models.icp import refine_matches_icp
+    from shape_based_matching_tpu_torch.utils.nms import nms_boxes
+
+    matches = det.match(frame, THRESHOLD)
+    boxes, scores = [], []
+    for m in matches:
+        t0 = det.get_templates(m.class_id, m.template_id)[0]
+        boxes.append((m.x, m.y, t0.width, t0.height))
+        scores.append(m.similarity)
+    kept = [matches[i] for i in nms_boxes(boxes, scores, 0.0, 0.5)]
+    lines = [f"{name}: {len(matches)} matches, {len(kept)} after NMS/verify"]
+    poses = []
+    refined = refine_matches_icp(det, frame, kept) if icp and kept else []
+    for i, m in enumerate(kept):
+        lines.append(f"  class={cid} tid={m.template_id} x={m.x} y={m.y} "
+                     f"sim={m.similarity:.2f}")
+        if refined and refined[i]["valid"]:
+            r = refined[i]
+            poses.append((r["tx"], r["ty"], r["dtheta_deg"], r["dscale"]))
+    return lines, poses
+
+
+def _parse_match(lines: list) -> tuple[list, list]:
+    """cli match's lines without the match time and icp fields, the
+    poses of its icp fields, and the CSV path line dropped."""
+    import re
+
+    icp = re.compile(r" icp\[x=(\S+) y=(\S+) dtheta=(\S+) dscale=(\S+) "
+                     r"rmse=\S+\]")
+    out, poses = [], []
+    for line in lines:
+        if line.startswith("timing summary"):
+            continue
+        m = icp.search(line)
+        if m:
+            poses.append(tuple(float(v) for v in m.groups()))
+        out.append(re.sub(r" \[match [0-9.]+ ms\]", "", icp.sub("", line)))
+    return out, poses
+
+
+def _csv_stats(path: str) -> dict:
+    """{stat: {column: ms}} of the CLI's timing CSV."""
+    with open(path) as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    cols = rows[0][1:]
+    return {r[0]: dict(zip(cols, map(float, r[1:]))) for r in rows[1:]}
+
+
+def cli_phase(trained: dict, card: str) -> dict:
+    """Phase 14: the CLI and the model directory on the card, at full
+    width, in a temporary directory.
+    1. Persistence: the classes rot1000x63, rot1000x128 and rot10000x63
+       trained by phase 8 written in the CLI's layout (save_settings with
+       templates_dir and classes, write_classes, registry.json), each
+       class written and read timed (the reads inside get_instance);
+       get_instance loads them equal field for field (theta is not
+       stored), and the loaded detector matches the flagship and dense
+       goldens.
+    2. ``cli match`` (threshold 85, NMS 0.5, top-k 1000, CSV, annotation)
+       on the flagship frame and the production stream as PNGs: on the
+       rot1000x63 model directory, and with --icp on the rot1000x128 one.
+       Its lines equal the in-memory path's (poses within POSE_TOL and
+       the printed digits); its CSV's stage ms beside the in-memory
+       Detector.match ms on the same frames.
+    3. ``cli train`` of a 4-angle x 3-scale sweep of the flagship template
+       image equals add_templates of the same renders; ``train-db`` and
+       ``match-db --verify-ccorr 0.5`` on tests/test_db.py's synthetic
+       tag database print the in-memory path's lines.
+    4. ``--trace DIR info`` (at 256x256, 64 templates) and ``info
+       --dispatch`` run; their lines are printed. The launch counters of the kernels are reset before the
+       golden matches from disk and each cli match, and each of those
+       must launch every kernel of its path."""
+    import shutil
+    import tempfile
+
+    from shape_based_matching_tpu_torch import Detector, get_instance
+    from shape_based_matching_tpu_torch import reset_instance
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows)
+    from shape_based_matching_tpu_torch.db import TagDB, make_fiducial_geo
+    from shape_based_matching_tpu_torch.models.shape_info import (
+        ShapeInfoProducer)
+    from shape_based_matching_tpu_torch.utils.imageio import (load_image,
+                                                              save_image)
+    from shape_based_matching_tpu_torch.utils.nms import nms_boxes
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        synthetic_scene, synthetic_shape_image)
+    from shape_based_matching_tpu_torch.utils.verify import (
+        verify_match_fiducial)
+    from shape_based_matching_tpu_torch.utils.yaml_io import (
+        class_file_path, dump_opencv_yaml)
+
+    report = {}
+    tmp = tempfile.mkdtemp(prefix="sbm_cli_")
+    try:
+        # 1. persistence
+        reg = os.path.join(tmp, "registry")
+        os.makedirs(reg)
+        det = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+        for cid in CLI_CLASSES:
+            det.class_templates[cid] = \
+                trained[cid].class_templates["bench"]
+        fmt = os.path.join(reg, "%s.yaml.gz")
+        write_s = {}
+        for cid in CLI_CLASSES:
+            t0 = time.perf_counter()
+            dump_opencv_yaml(det.write_class(cid), class_file_path(fmt, cid))
+            write_s[cid] = time.perf_counter() - t0
+        settings = os.path.join(reg, "detector_linemod.yaml")
+        det.save_settings(settings, templates_dir=reg, classes=CLI_CLASSES)
+        _registry(CLI_CLASSES, reg)
+        reset_instance()
+        t0 = time.perf_counter()
+        with _read_timer() as read_s:
+            inst = get_instance(settings, device=DEVICE)
+        get_s = time.perf_counter() - t0
+        reset_instance()
+        if inst.class_ids() != list(CLI_CLASSES):
+            raise AssertionError(f"get_instance loaded {inst.class_ids()}")
+        for cid in CLI_CLASSES:
+            if _fields(inst.class_templates[cid], False) != _fields(
+                    det.class_templates[cid], False):
+                raise AssertionError(f"{cid}: the loaded templates differ "
+                                     f"from the trained ones")
+        kernels = (quant_spread, coarse_scores, chain_scores,
+                   refine_windows, coarse_maps, map_refine)
+        # the kernels each path must launch
+        need = {"rot1000x63": {"quant_spread", "coarse_scores",
+                               "refine_windows", "coarse_maps",
+                               "map_refine"},
+                "rot10000x63": {"quant_spread", "chain_scores",
+                                "refine_windows", "coarse_maps",
+                                "map_refine"},
+                "rot1000x128": {"quant_spread", "coarse_scores",
+                                "refine_windows"}}
+
+        def launched(run, cid: str, what: str):
+            for fn in kernels:
+                fn.launches = 0
+            out = run()
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in kernels}
+            if any(not counts[k] for k in need[cid]):
+                raise AssertionError(f"{what}: a kernel of the path was not "
+                                     f"launched: {counts}")
+            report.setdefault("launches", {})[what] = counts
+            return out
+
+        lists = {}
+        for cid, gpath in (("rot1000x63", GOLDEN),
+                           ("rot10000x63", DENSE_GOLDEN)):
+            golden = json.load(open(gpath))
+            got = launched(lambda: inst.match(_scene(golden["config"]),
+                                              THRESHOLD, [cid]),
+                           cid, f"{cid} from disk")
+            if _keys(got) != golden["matches"]:
+                raise AssertionError(f"{cid} loaded from disk: the flagship "
+                                     f"list differs from "
+                                     f"{os.path.basename(gpath)}")
+            lists[cid] = len(got)
+        sizes = {c: os.path.getsize(class_file_path(fmt, c))
+                 for c in CLI_CLASSES}
+        for cid in CLI_CLASSES:
+            print(f"model dir: {cid} ({len(det.class_templates[cid])} "
+                  f"templates, {sizes[cid] / 1e6:.2f} MB gzipped): write "
+                  f"{write_s[cid]:.3f} s, read {read_s[cid]:.3f} s")
+        print(f"model dir: get_instance {get_s:.3f} s for the 3 classes; "
+              f"equal field for field; from disk the flagship list equals "
+              f"the e2e1000 golden ({lists['rot1000x63']} matches) and the "
+              f"dense one e2e10000 ({lists['rot10000x63']}) on {card}")
+        report["persistence"] = {"write_s": write_s, "read_s": read_s,
+                                 "get_instance_s": get_s, "bytes": sizes,
+                                 "golden_matches": lists}
+
+        # 2. cli match
+        frames_dir = os.path.join(tmp, "frames")
+        os.makedirs(frames_dir)
+        templ = synthetic_shape_image(256, 0)
+        frames = {}
+        for seed in CLI_SEEDS:
+            name = f"seed{seed:02d}.png"
+            frames[name] = synthetic_scene(1024, 1024, templ, n_instances=4,
+                                           seed=seed)
+            save_image(frames[name], os.path.join(frames_dir, name))
+        if (load_image(os.path.join(frames_dir, "seed03.png"), gray=True)
+                != frames["seed03.png"]).any():
+            raise AssertionError("a frame changed through its PNG")
+        report["match"] = {}
+        for cid, icp in (("rot1000x63", False), ("rot1000x128", True)):
+            md = os.path.join(tmp, cid)
+            os.makedirs(md)
+            shutil.copy(class_file_path(fmt, cid),
+                        class_file_path(os.path.join(md, "%s.yaml.gz"), cid))
+            det.save_settings(os.path.join(md, "detector_linemod.yaml"),
+                              templates_dir=md, classes=[cid])
+            _registry([cid], md)
+            csv = os.path.join(tmp, f"{cid}.csv")
+            lines, secs = launched(lambda: _cli(
+                ["--device", DEVICE, "match", "--model-dir", md,
+                 "--test-dir", frames_dir, "--threshold", str(THRESHOLD),
+                 "--nms", "0.5", "--top-k", "1000", "--csv", csv,
+                 "--annotate", os.path.join(tmp, f"out_{cid}"), "--gray"]
+                + (["--icp"] if icp else [])), cid, f"cli match {cid}")
+            got, got_poses = _parse_match(lines)
+            mem = Detector(num_features=trained[cid].num_features,
+                           T=T_LEVELS, device=DEVICE)
+            mem.class_templates[cid] = det.class_templates[cid]
+            want, want_poses = [], []
+            for name, frame in frames.items():
+                w, p = _match_lines(mem, cid, name, frame, icp)
+                want += w
+                want_poses += p
+            if got != want:
+                raise AssertionError(f"cli match on {cid}: its lines differ "
+                                     f"from the in-memory path's")
+            if len(got_poses) != len(want_poses) or any(
+                    abs(a - b) > t for g, w in zip(got_poses, want_poses)
+                    for a, b, t in zip(g, w, CLI_ICP_TOL)):
+                raise AssertionError(f"cli match --icp on {cid}: poses past "
+                                     f"the tolerance")
+            mem_ms = [_time_ms(lambda: mem.match(frame, THRESHOLD), 5)
+                      for frame in frames.values()]
+            stats = _csv_stats(csv)
+            kept = sum(1 for l in got if l.startswith("  class="))
+            print(f"cli match {cid}{' --icp' if icp else ''}: "
+                  f"{len(frames)} frames, {kept} kept lines equal the "
+                  f"in-memory path's ({len(got_poses)} icp poses within "
+                  f"POSE_TOL), {secs:.2f} s; per frame ms mean (min-max): "
+                  + ", ".join(f"{k} {stats['mean'][k]:.3f} "
+                              f"({stats['min'][k]:.3f}-{stats['max'][k]:.3f})"
+                              for k in stats["mean"])
+                  + f"; in-memory Detector.match warm "
+                  f"{np.mean(mem_ms):.3f} ({min(mem_ms):.3f}-"
+                  f"{max(mem_ms):.3f}) on {card}; launches "
+                  f"{report['launches'][f'cli match {cid}']}")
+            report["match"][cid] = {"icp": icp, "seconds": secs,
+                                    "kept_lines": kept,
+                                    "icp_poses": len(got_poses),
+                                    "csv": stats, "memory_ms": mem_ms}
+
+        # 3. train, train-db, match-db
+        templ_path = os.path.join(tmp, "templ.png")
+        save_image(templ, templ_path)
+        md = os.path.join(tmp, "sweep")
+        lines, secs = _cli(["--device", DEVICE, "train", "--model-dir", md,
+                            "--class-id", "sweep", "--image", templ_path,
+                            "--angles", "0,90,180,270", "--scales",
+                            "0.9:1.1:0.1", "--gray"])
+        mem = Detector(device=DEVICE)
+        full = np.full(templ.shape, 255, np.uint8)
+        for scale in (0.9, 1.0, 1.1):
+            angles = (0.0, 90.0, 180.0, 270.0)
+            mem.add_templates(
+                np.stack([ShapeInfoProducer.transform(templ, a, scale)
+                          for a in angles]), "sweep",
+                np.stack([(ShapeInfoProducer.transform(full, a, scale) > 0)
+                          * np.uint8(255) for a in angles]),
+                sscales=[scale] * 4, orientations=list(angles),
+                fiducial_src=os.path.join(md, "sweep.fid.png"))
+        disk = Detector(device=DEVICE)
+        disk.read_classes(["sweep"], os.path.join(md, "%s.yaml.gz"))
+        if _fields(disk.class_templates["sweep"], False) != _fields(
+                mem.class_templates["sweep"], False):
+            raise AssertionError("cli train: the class file differs from "
+                                 "add_templates of the same renders")
+        print(f"cli train: 12-render sweep ({mem.num_templates()} "
+              f"templates) equals add_templates of the same renders field "
+              f"for field, {secs:.2f} s")
+
+        dbdir = os.path.join(tmp, "db")
+        os.makedirs(os.path.join(dbdir, "frames"))
+        fid_shape = synthetic_shape_image(96, seed=0)
+        model_img = np.zeros((192, 192), np.uint8)
+        model_img[32:128, 48:144] = fid_shape
+        model_path = os.path.join(dbdir, "tag_model.png")
+        save_image(model_img, model_path)
+        db = TagDB(os.path.join(dbdir, "tags.sqlite"))
+        db.add_tag_field(3, "field0", 3)
+        db.add_tag_model(42, "m42", model_path, [(3, make_fiducial_geo(
+            48 / 192, 32 / 192, 96 / 192, 96 / 192, (192, 192)))])
+        db.close()
+        scene = synthetic_scene(256, 256, fid_shape, n_instances=2, seed=5)
+        save_image(scene, os.path.join(dbdir, "frames", "scene.png"))
+        mdir = os.path.join(dbdir, "model_images")
+        _, tdb_s = _cli(["--device", DEVICE, "train-db", "--db", db.path,
+                         "--model-dir", mdir, "--num-features", "48",
+                         "--weak", "30", "--strong", "60", "--angles", "0",
+                         "--scales", "1.0"])
+        reset_instance()
+        lines, mdb_s = _cli(["--device", DEVICE, "match-db", "--db", db.path,
+                             "--model-dir", mdir, "--test-dir",
+                             os.path.join(dbdir, "frames"), "--threshold",
+                             "80", "--verify-ccorr", "0.5", "--gray"])
+        reset_instance()
+        fid_path = os.path.join(dbdir, "tag_model.3.png")
+        mem = Detector(num_features=48, weak_threshold=30.0,
+                       strong_threshold=60.0, device=DEVICE)
+        mem.add_template(model_img[32:128, 48:144], "42",
+                         np.full((96, 96), 255, np.uint8), sscale=1.0,
+                         orientation=0.0, tag_field_id=3,
+                         fiducial_src=fid_path)
+        matches = mem.match(scene, 80.0)
+        boxes = [(m.x, m.y, mem.get_templates("42", m.template_id)[0].width,
+                  mem.get_templates("42", m.template_id)[0].height)
+                 for m in matches]
+        fid = load_image(fid_path, gray=True)
+        kept = []
+        for i in nms_boxes(boxes, [m.similarity for m in matches], 0.0, 0.5):
+            m = matches[i]
+            t0 = mem.get_templates("42", m.template_id)[0]
+            if verify_match_fiducial(scene, (m.x, m.y), t0, fid, 0.5,
+                                     device=DEVICE)[0]:
+                kept.append(m)
+        want = [f"scene.png: {len(matches)} matches, {len(kept)} after "
+                f"NMS/verify"] + [
+            f"  model=m42 class=42 tid={m.template_id} x={m.x} y={m.y} "
+            f"sim={m.similarity:.2f} scale=1.00 angle=0" for m in kept]
+        got, _ = _parse_match(lines)
+        if got != want or not kept:
+            raise AssertionError(f"cli match-db: {got} differs from the "
+                                 f"in-memory path's {want}")
+        print(f"cli train-db {tdb_s:.2f} s, match-db --verify-ccorr 0.5 "
+              f"{mdb_s:.2f} s: {len(kept)} kept lines equal the in-memory "
+              f"path's")
+        report["train_db"] = {"train_db_s": tdb_s, "match_db_s": mdb_s,
+                              "kept": len(kept)}
+
+        # 4. info
+        trace = os.path.join(tmp, "trace")
+        for name, argv in (("trace", ["--trace", trace, "info", "--size",
+                                      "256x256", "--templates", "64"]),
+                           ("dispatch", ["info", "--dispatch"])):
+            lines, _ = _cli(["--device", DEVICE] + argv)
+            for line in lines:
+                print(f"cli info ({name}) | {line}")
+            report[f"info_{name}"] = lines
+        if not os.path.getsize(os.path.join(trace, "trace.json")):
+            raise AssertionError("cli --trace wrote an empty trace")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2122,6 +2537,12 @@ def main() -> None:
     report["phase_seconds_12_13"] = {"production": t5 - t4,
                                      "patch_2843": t6 - t5}
     print(f"seconds: production {t5 - t4:.1f}, patch_2843 {t6 - t5:.1f}")
+
+    # 14. the CLI and the model directory
+    report["cli"] = cli_phase(trained, card)
+    t7 = time.perf_counter()
+    report["phase_seconds_14"] = t7 - t6
+    print(f"seconds: cli and model directory {t7 - t6:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

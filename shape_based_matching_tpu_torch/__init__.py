@@ -13,19 +13,33 @@ reference it is held against bit for bit. It imports torch and never jax.
 
 On CPU tensors every kernel wrapper runs its plain PyTorch twin; on CUDA
 tensors it launches the kernel (built from ``csrc/`` with nvcc at first
-use) or raises. Training's host helpers build from ``csrc/host.cpp`` with
-the host C++ compiler at first use.
+use) or raises. The host helpers (training's greedy passes, NMS) build
+from ``csrc/host.cpp`` with the host C++ compiler at first use.
+
+Model directories (``det.write_classes``, ``det.save_settings``,
+``get_instance``) are the reference's OpenCV YAML; the command line is
+``python -m shape_based_matching_tpu_torch --device cuda|cpu
+train|match|train-db|match-db|preprocess|demo|info``.
 """
 
-from .models.detector import Detector, Match
+from .models.detector import Detector, Match, get_instance, reset_instance
 from .models.icp import (IcpResult, MatchIcpHandle, match_icp,
                          match_icp_async, match_refine_batch,
                          refine_matches_icp)
 from .models.refine import RefinedPose, refine_detections
+from .models.shape_info import ShapeInfoProducer
+from .models.template import Feature, Template
+from .utils.nms import nms_boxes
 
 __all__ = [
     "Detector",
     "Match",
+    "Feature",
+    "Template",
+    "ShapeInfoProducer",
+    "get_instance",
+    "reset_instance",
+    "nms_boxes",
     "RefinedPose",
     "refine_detections",
     "refine_matches_icp",

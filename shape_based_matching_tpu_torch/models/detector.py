@@ -41,10 +41,17 @@ Trained templates and match results are bit-identical to the JAX
 package's ``Detector`` (template id, position and float32 similarity of
 every match). Subpixel pose refinement of the matches (``match_icp``,
 ``match_icp_async``) lives in ``models/icp.py``.
+
+**Persistence.** Settings and classes are written and read as the
+reference's OpenCV YAML (``write_settings`` ... ``read_classes``,
+line2Dup.cpp:1489-1599, through ``utils/yaml_io.py``), in the same files
+and text as the JAX package's; ``get_instance`` bootstraps a process-wide
+detector from a settings file that lists its classes.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from collections import Counter
 from dataclasses import dataclass
@@ -57,14 +64,17 @@ from ..ops.chain_plan import ChainPlan, plan_chain
 from ..ops.cuda.chain import plan_to_device
 from ..ops.cuda.frontend import quant_spread
 from ..ops.filters import erode3_u8, pyr_down_u8, resize_nearest
-from ..ops.gradients import (quantized_orientations_color,
+from ..ops.gradients import (quantized_orientations,
+                             quantized_orientations_color,
                              quantized_orientations_gray)
 from ..ops.response import build_lm_from_spread, to_i32
 from ..ops.similarity import (LevelBank, coarse_extract, refine_by_maps,
                               refine_candidates)
 from ..utils.convert import level_max_dims, pyramids_to_banks
+from ..utils.yaml_io import (class_file_path, dump_opencv_yaml,
+                             load_opencv_yaml)
 from . import training
-from .template import TemplatePyramid, crop_templates
+from .template import Template, TemplatePyramid, crop_templates
 
 
 @dataclass
@@ -230,6 +240,41 @@ def _train_level(src: torch.Tensor, msk: torch.Tensor | None,
                         quant.angle_ori[b, y, x].view(torch.int32)], dim=1)
     host = torch.cat([e, st.to(torch.int32), vals]).cpu().numpy()
     return host, e.shape[0], st.shape[0]
+
+
+_instance: "Detector | None" = None
+
+
+def get_instance(path: str | None = None, *, device="cuda") -> "Detector":
+    """Singleton bootstrap from a settings YAML (line2Dup.cpp:1355-1393).
+
+    Loads `detector_linemod.yaml` (default: ./model_images/) onto
+    `device` plus every class listed under its `classes` key from
+    `templates_dir`. Later calls return the same detector until
+    ``reset_instance``."""
+    global _instance
+    if _instance is None:
+        if path is None:
+            path = os.path.join(os.getcwd(), "model_images",
+                                "detector_linemod.yaml")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"LINEMOD configuration file ({path}) not found!")
+        doc = load_opencv_yaml(path)
+        det = Detector(device=device)
+        det.read_settings(doc)
+        class_ids = doc.get("classes") or []
+        templates_dir = doc.get("templates_dir", "")
+        if class_ids:
+            det.read_classes(class_ids,
+                             os.path.join(templates_dir, "%s.yaml.gz"))
+        _instance = det
+    return _instance
+
+
+def reset_instance() -> None:
+    global _instance
+    _instance = None
 
 
 class Detector:
@@ -540,6 +585,13 @@ class Detector:
         border = 16 * self.T_at_level[level]
         return size_wh[0] - wmax < border or size_wh[1] - hmax < border
 
+    def _quantized(self, src: np.ndarray):
+        """Quantized orientations of one gray [H, W] or BGR [H, W, 3]
+        uint8 frame on the device (the CLI's --debug dumps)."""
+        return quantized_orientations(
+            torch.from_numpy(np.ascontiguousarray(src)).to(self.device),
+            self.weak_threshold, self.num_orientations, self.patch_2843)
+
     def _level_sizes(self, hw) -> list[tuple]:
         h, w = int(hw[0]), int(hw[1])
         sizes = []
@@ -757,3 +809,92 @@ class Detector:
         return match_icp_async(self, source, threshold, class_ids,
                                top_c=top_c, iters=iters, radius=radius,
                                cand_cap=cand_cap)
+
+    # ------------------------------------------------------------------
+    # Persistence (line2Dup.cpp:1489-1599)
+    # ------------------------------------------------------------------
+
+    def write_settings(self) -> dict:
+        doc = {
+            "pyramid_levels": self.pyramid_levels,
+            "T": list(self.T_at_level),
+            "type": "ColorGradient",
+            "weak_threshold": float(self.weak_threshold),
+            "num_features": int(self.num_features),
+            "strong_threshold": float(self.strong_threshold),
+        }
+        if self.num_orientations != 8:
+            doc["num_orientations"] = self.num_orientations
+        return doc
+
+    def read_settings(self, doc: dict) -> None:
+        """Take the settings of `doc`; drops every class and cache."""
+        self.pyramid_levels = int(doc["pyramid_levels"])
+        self.T_at_level = tuple(int(t) for t in doc["T"])
+        self.weak_threshold = float(doc.get("weak_threshold", 30.0))
+        self.num_features = int(doc.get("num_features", 63))
+        self.strong_threshold = float(doc.get("strong_threshold", 60.0))
+        self.num_orientations = int(doc.get("num_orientations", 8))
+        if self.num_orientations not in (8, 16):
+            raise ValueError(f"num_orientations={self.num_orientations}: "
+                             f"8 or 16")
+        for class_id in list(self.class_templates):
+            self._invalidate(class_id)
+        self.class_templates.clear()
+
+    def save_settings(self, path: str, templates_dir: str | None = None,
+                      classes=None) -> None:
+        """Write detector settings; with `templates_dir`/`classes` the file
+        matches the jabil driver's full schema (test_jabil.cpp:113-117) and
+        bootstraps get_instance()."""
+        doc = self.write_settings()
+        if templates_dir is not None:
+            doc["templates_dir"] = templates_dir
+        if classes is not None:
+            doc["classes"] = list(classes)
+        elif templates_dir is not None:
+            doc["classes"] = self.class_ids()
+        dump_opencv_yaml(doc, path)
+
+    @classmethod
+    def load_settings(cls, path: str, *, device="cuda") -> "Detector":
+        det = cls(device=device)
+        det.read_settings(load_opencv_yaml(path))
+        return det
+
+    def write_class(self, class_id: str) -> dict:
+        pyramids = self.class_templates[class_id]
+        return {
+            "class_id": class_id,
+            "pyramid_levels": self.pyramid_levels,
+            "template_pyramids": [
+                {
+                    "template_id": i,
+                    "templates": [t.to_yaml() for t in tp],
+                }
+                for i, tp in enumerate(pyramids)
+            ],
+        }
+
+    def read_class(self, doc: dict, class_id_override: str = "") -> str:
+        """Take the class of `doc` (replacing one of the same id) and drop
+        every cache that held it."""
+        class_id = class_id_override or doc["class_id"]
+        pyramids = []
+        for tp_node in doc.get("template_pyramids", []):
+            tp = [Template.from_yaml(t) for t in tp_node.get("templates", [])]
+            pyramids.append(tp)
+        self.class_templates[class_id] = pyramids
+        self._invalidate(class_id)
+        return class_id
+
+    def write_classes(self, fmt: str = "templates_%s.yml.gz") -> None:
+        for class_id in self.class_templates:
+            path = class_file_path(fmt, class_id)
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            dump_opencv_yaml(self.write_class(class_id), path)
+
+    def read_classes(self, class_ids, fmt: str = "templates_%s.yml.gz"
+                     ) -> None:
+        for class_id in class_ids:
+            self.read_class(load_opencv_yaml(class_file_path(fmt, class_id)))

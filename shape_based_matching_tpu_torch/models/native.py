@@ -1,14 +1,14 @@
-"""Build and load the host helpers of training (``csrc/host.cpp``).
+"""Build and load the host helpers (``csrc/host.cpp``).
 
-The two greedy passes of feature extraction run on the host: they are
-sequential by definition, and a 10,000-angle bank or an 8191-feature
-template makes their Python loops the slowest part of training. The
-helpers compile at first use with the host C++ compiler into
+The two greedy passes of feature extraction and the greedy NMS of match
+boxes run on the host: they are sequential by definition, and a
+10,000-angle bank or an 8191-feature template makes their Python loops
+the slowest part of training. The helpers compile at first use with the host C++ compiler into
 ``build/sbm_torch_host/`` at the repository root, under a file name that
 carries a hash of the source and flags, and load with ``ctypes``. A
 failed build raises with the compiler's message: there is no silent
-fallback to the Python loops, which stay in ``models/training.py`` as the
-plain versions the tests compare against.
+fallback to the Python loops, which stay in ``models/training.py`` and
+``utils/nms.py`` as the plain versions the tests compare against.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "sbm_torch_host")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++14", "-ffp-contract=off")
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_F32P = ctypes.POINTER(ctypes.c_float)
 
 
 def compiler() -> str:
@@ -78,4 +79,7 @@ def library() -> ctypes.CDLL:
                                          ctypes.c_int, ctypes.c_float,
                                          _I32P)
     lib.sbm_select_scattered.restype = ctypes.c_int
+    lib.sbm_nms_boxes.argtypes = (ctypes.c_int, _F32P, _I32P, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_float, _I32P)
+    lib.sbm_nms_boxes.restype = ctypes.c_int
     return lib

@@ -2,7 +2,9 @@
 
 Plain Python dataclasses on the host; packed into `LevelBank` tensors
 (ops/similarity.py) before anything touches the device. ``crop_templates``
-is training's bounding-box crop. YAML I/O of templates is not ported yet.
+is training's bounding-box crop. ``to_yaml`` / ``from_yaml`` are the
+reference's Template::write / read (line2Dup.cpp:86-113) with the ddcr
+fork's fields, in the JAX package's key order; ``theta`` is not stored.
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ class Feature:
     label: int = 0
     theta: float = 0.0  # raw gradient angle in degrees (not serialized)
 
+    def to_yaml(self):
+        return [int(self.x), int(self.y), int(self.label)]
+
+    @classmethod
+    def from_yaml(cls, seq) -> "Feature":
+        return cls(int(seq[0]), int(seq[1]), int(seq[2]))
+
 
 @dataclass
 class Template:
@@ -32,6 +41,38 @@ class Template:
     orientation: float = 0.0
     tag_field_id: int = 0
     fiducial_src: str = ""
+
+    def to_yaml(self) -> dict:
+        return {
+            "width": int(self.width),
+            "height": int(self.height),
+            "tl_x": int(self.tl_x),
+            "tl_y": int(self.tl_y),
+            "scale": float(self.sscale),
+            "orientation": float(self.orientation),
+            "tagFieldID": int(self.tag_field_id),
+            "fiducial_src": self.fiducial_src,
+            "pyramid_level": int(self.pyramid_level),
+            "features": [[int(f.x), int(f.y), int(f.label)]
+                         for f in self.features],
+        }
+
+    @classmethod
+    def from_yaml(cls, node: dict) -> "Template":
+        # cv::FileNode defaults for absent keys: 0 / 0.0 / "".
+        return cls(
+            width=int(node.get("width", 0)),
+            height=int(node.get("height", 0)),
+            tl_x=int(node.get("tl_x", 0)),
+            tl_y=int(node.get("tl_y", 0)),
+            pyramid_level=int(node.get("pyramid_level", 0)),
+            features=[Feature(int(x), int(y), int(label))
+                      for x, y, label in node.get("features", [])],
+            sscale=float(node.get("scale", 0.0) or 0.0),
+            orientation=float(node.get("orientation", 0.0) or 0.0),
+            tag_field_id=int(node.get("tagFieldID", 0) or 0),
+            fiducial_src=str(node.get("fiducial_src", "") or ""),
+        )
 
 
 TemplatePyramid = List[Template]  # one Template per pyramid level

@@ -149,14 +149,17 @@ def quantized_orientations_color(src: torch.Tensor, weak_threshold: float,
 
 
 def quantized_orientations(src: torch.Tensor, weak_threshold: float,
-                           n_ori: int = 8) -> QuantizedGradients:
+                           n_ori: int = 8, patch_2843: bool = False
+                           ) -> QuantizedGradients:
     """Dispatch one uint8 frame on its shape, as modality->process does
     (line2Dup.cpp:313): gray [H, W], or BGR [H, W, 3] (moved to planar
     channels for ``quantized_orientations_color``)."""
     if src.dim() == 2:
-        return quantized_orientations_gray(src, weak_threshold, n_ori)
+        return quantized_orientations_gray(src, weak_threshold, n_ori,
+                                           patch_2843)
     if src.dim() == 3 and src.shape[-1] == 3:
         return quantized_orientations_color(src.permute(2, 0, 1),
-                                            weak_threshold, n_ori)
+                                            weak_threshold, n_ori,
+                                            patch_2843)
     raise ValueError(f"expected [H,W] gray or [H,W,3] color, got "
                      f"{tuple(src.shape)}")

@@ -878,3 +878,93 @@ def refine_matches_icp_batch(det, frame):
     out = match_refine_batch(det, frame[None], 70.0, top_c=8)["c"][0]
     return (torch.stack([out["k"], out["x"], out["y"]]),
             torch.stack([out["icp"].tx, out["icp"].ty]))
+
+
+def _cli_lines(argv):
+    import contextlib
+    import io
+    import re
+
+    from shape_based_matching_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return [re.sub(r"\[match [0-9.]+ ms\]", "[match]", l)
+            for l in buf.getvalue().splitlines()]
+
+
+def test_cli_match_on_card_equals_cpu(dev, tmp_path):
+    """The CLI's train and match (--icp, --verify-ccorr) print the same
+    lines on the card as on the CPU at 256^2, the poses within the
+    production tolerance; the model directories are equal."""
+    import re
+
+    from shape_based_matching_tpu_torch.utils.imageio import save_image
+
+    templ = synthetic.synthetic_shape_image(128, 0)
+    scene = synthetic.synthetic_scene(256, 256, templ, n_instances=2, seed=5)
+    save_image(templ, str(tmp_path / "templ.png"))
+    (tmp_path / "frames").mkdir()
+    save_image(scene, str(tmp_path / "frames" / "scene.png"))
+    out = {}
+    for device in ("cpu", "cuda"):
+        md = str(tmp_path / device)
+        out[device] = _cli_lines([
+            "--device", device, "train", "--model-dir", md, "--class-id",
+            "shape", "--image", str(tmp_path / "templ.png"), "--angles",
+            "0,90", "--num-features", "48", "--gray"])
+        out[device] += _cli_lines([
+            "--device", device, "match", "--model-dir", md, "--test-dir",
+            str(tmp_path / "frames"), "--threshold", "80", "--gray",
+            "--verify-ccorr", "0.5", "--icp"])
+        out[device] = [l.replace(md, "{dir}") for l in out[device]]
+    icp = re.compile(r" icp\[.*\]")
+    assert [icp.sub("", l) for l in out["cuda"]] == \
+        [icp.sub("", l) for l in out["cpu"]]
+    assert sum(" icp[" in l for l in out["cuda"]) >= 2
+    num = re.compile(r"icp\[x=(\S+) y=(\S+) dtheta=(\S+) dscale=(\S+)")
+    for a, b in zip(out["cpu"], out["cuda"]):
+        ma, mb = num.search(a), num.search(b)
+        assert (ma is None) == (mb is None)
+        if ma:
+            for u, v, t in zip(ma.groups(), mb.groups(),
+                               (0.015, 0.015, 1.5e-3, 1.5e-4)):
+                assert abs(float(u) - float(v)) <= t, (a, b)
+
+
+def test_ssim_ccorr_on_card_equal_cpu(dev):
+    """The verify ops on the card agree with the CPU within 1e-5 (float32
+    SSIM; float64 correlations, no TF32)."""
+    from shape_based_matching_tpu_torch.utils import verify
+
+    rng = np.random.RandomState(3)
+    a = rng.randint(0, 256, (96, 128), np.uint8)
+    b = np.clip(a.astype(int) + rng.randint(-30, 30, a.shape), 0,
+                255).astype(np.uint8)
+    gm, gmap = verify.ssim(a, b, device=dev)
+    cm, cmap = verify.ssim(a, b, device="cpu")
+    assert gmap.device.type == "cuda"
+    assert abs(float(gm) - float(cm)) < 1e-5
+    assert (gmap.cpu() - cmap).abs().max() < 1e-5
+    templ = a[20:60, 30:90]
+    g = verify.match_template_ccorr_normed(a, templ, device=dev)
+    c = verify.match_template_ccorr_normed(a, templ, device="cpu")
+    assert g.device.type == "cuda" and (g.cpu() - c).abs().max() < 1e-5
+    assert float(g[20, 30]) > 0.99999
+
+
+def test_nms_host_helper_builds_on_the_card_machine(dev):
+    """sbm_nms_boxes builds from csrc/host.cpp with the host compiler of
+    the card's machine and equals the Python loop."""
+    from shape_based_matching_tpu_torch.models import native
+    from shape_based_matching_tpu_torch.utils import nms
+
+    assert native.library().sbm_nms_boxes is not None
+    rng = np.random.RandomState(1)
+    boxes = [tuple(int(v) for v in b) for b in np.c_[
+        rng.randint(0, 200, (400, 2)), rng.randint(1, 60, (400, 2))]]
+    scores = list(rng.uniform(50, 100, 400))
+    for eta in (1.0, 0.9):
+        assert nms.nms_boxes(boxes, scores, 60.0, 0.5, eta) == \
+            nms.nms_boxes_plain(boxes, scores, 60.0, 0.5, eta)

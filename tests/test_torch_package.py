@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it never imports JAX (training
-included), its kernel wrappers run the plain twins (and count no launch)
+"""Boundaries of the PyTorch port: it never imports JAX (training,
+persistence, the CLI and the utilities included, which need neither
+PyYAML nor an image library either), its kernel wrappers run the plain twins (and count no launch)
 only for CPU tensors, it builds kernels only with nvcc, and a failed
 build of its host helpers raises."""
 
@@ -42,7 +43,26 @@ both = det.match(img, 85.0)
 assert ("c", "t") in det._merged
 top = {(m.class_id, m.template_id) for m in both if m.similarity == 100.0}
 assert {("c", 0), ("t", 0)} <= top
-assert "jax" not in sys.modules, "the port imported jax"
+# persistence, the CLI and the utilities import neither jax, PyYAML nor
+# an image library
+import tempfile
+from shape_based_matching_tpu_torch import cli, db, get_instance
+from shape_based_matching_tpu_torch.utils import (imageio, nms, preprocess,
+                                                  timer, verify, viz,
+                                                  yaml_io)
+d = tempfile.mkdtemp()
+det.write_classes(d + "/%s.yaml.gz")
+det.save_settings(d + "/detector_linemod.yaml", templates_dir=d)
+imageio.save_image(img, d + "/f.png")
+again = get_instance(d + "/detector_linemod.yaml", device="cpu")
+assert again.match(imageio.load_image(d + "/f.png", gray=True), 85.0) \
+    == both
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli.main(["--device", "cpu", "preprocess", "--test-dir", d,
+                     "--out-dir", d + "/pre"]) == 0
+for name in ("jax", "yaml", "PIL", "cv2"):
+    assert name not in sys.modules, f"the port imported {name}"
 print(len(matches))
 """
 
