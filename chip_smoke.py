@@ -104,7 +104,17 @@ Phases, each reported on its own line:
    to ``add_templates``, ``train-db`` and ``match-db`` on a synthetic tag
    database, ``--trace DIR info`` (a small configuration) and ``info
    --dispatch``; each path
-   launches every kernel it needs. The phase's seconds are printed.
+   launches every kernel it needs. The phase's seconds are printed;
+15. the sharded paths (``parallel/``, ``match --spatial-shards``, the
+   examples) on the card, every shard round-robin on it: a 4096^2 frame
+   on 4 row tiles (rot1000x63 and rot10000x63) equal to the whole frame's
+   match, with the tile's kernels against their twins; 8 flagship frames
+   over meshes (1, 4), (2, 2), (4, 1) and the dense bank over (1, 4),
+   each frame equal to its own match; the 64-frame training sweep on 4
+   shards equal to ``add_templates``; the production tier on 4 shards
+   equal to per-frame ``match_refine_batch`` bit for bit; ``cli match
+   --spatial-shards 4`` equal to ``cli match``; the four examples. Each
+   path's launches; one-card timings and peak memory (``sharded_phase``).
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -2273,6 +2283,481 @@ def cli_phase(trained: dict, card: str) -> dict:
     return report
 
 
+# phase 15: the sharded paths on one card, their shards round-robin
+HUGE = 4096                       # the huge frame's side
+SHARDS = 4                        # shards of every sharded path
+HUGE_EDGES = (1024, 2048, 3072)   # 4 bands' edges: instances centred there
+MESH_SHAPES = ((1, 4), (2, 2), (4, 1))
+PRODUCTION_SEEDS = tuple(range(7, 15))
+
+
+def _huge_frame() -> np.ndarray:
+    """Phase 15's 4096^2 gray frame: synthetic_scene of the flagship
+    template with 16 instances (seed 3), and 3 more pasted across the
+    band edges of 4 shards, centred on rows 1024, 2048 and 3072."""
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        synthetic_scene, synthetic_shape_image)
+
+    templ = synthetic_shape_image(256, 0)
+    scene = synthetic_scene(HUGE, HUGE, templ, n_instances=16, seed=3)
+    for i, row in enumerate(HUGE_EDGES):
+        y, x = row - 128, 256 + i * (HUGE - 768) // 2
+        scene[y:y + 256, x:x + 256] = np.maximum(
+            scene[y:y + 256, x:x + 256], templ)
+    return scene
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Warm mean ms per call on the host clock, each call synchronized
+    (the sharded paths end in a download or a synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _peak_gb(fn) -> float:
+    """Peak device memory (GB) that torch allocated during fn()."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _cap_holding(n: int) -> int:
+    """The smallest multiple of 1024 that holds n candidates: a cap at
+    which no frame or tile overflows, without the next bucket's memory
+    (the dense frame's 16,460 candidates would take the 65,536 bucket's
+    [65536, 65536] int32 gathers)."""
+    return -(-max(n, 1) // 1024) * 1024
+
+
+def _tile_kernels(det, banks, tile: np.ndarray, cap: int, plan,
+                  launches: dict, path: str, card: str) -> list:
+    """The kernels of a tile of the spatial path against their twins,
+    bitwise, at the tile's shapes: the frontend at both levels, coarse.cu
+    (and chain.cu when the tile has a plan) at the coarse level, the
+    window at level 0 on the tile's candidates at `cap`. One timed record
+    each (the frontend's at level 0)."""
+    from shape_based_matching_tpu_torch.models.detector import (
+        _batch_pyramid)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import (
+        chain_scores, chain_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows, refine_windows_plain)
+    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
+
+    dev = torch.device(DEVICE)
+    weak = det.weak_threshold
+    full = torch.from_numpy(tile[None]).to(dev)
+    half = pyr_down_u8(full)
+    fe0 = (full, weak, T_LEVELS[0])
+    fe1 = (half, weak, T_LEVELS[1])
+    fe_err = _max_abs_err([(quant_spread(*a), quant_spread_plain(*a))
+                           for a in (fe0, fe1)])
+    lms = _batch_pyramid(full, det.T_at_level, det.pyramid_levels, weak)
+    sizes = det._level_sizes(tile.shape)
+    T1, (w1, h1) = T_LEVELS[1], sizes[1]
+    W1, H1 = w1 // T1, h1 // T1
+    M1 = W1 * H1
+    thr = torch.full((), THRESHOLD, dtype=torch.float32, device=dev)
+    off = _flat_offsets(banks[1], T1, W1, M1, sizes[1])
+    pos = _positions(banks[1], T1, W1, H1)
+    rmin, _ = _rmin_for_threshold(banks[1].nfeat, thr)
+    k2 = (lms[1], off, pos, rmin, M1)
+    co_err = _max_abs_err(zip(coarse_scores(*k2), coarse_scores_plain(*k2)))
+    k, x, y, _, valid, _ = coarse_extract(lms[1], banks[1], T1, sizes[1],
+                                          thr, cap, plan)
+    wx, wy = window_origin(banks[0].width, banks[0].height, T_LEVELS[0],
+                           sizes[0], k, x, y)
+    k3 = (lms[0], banks[0], T_LEVELS[0], sizes[0], k, wx, wy, valid)
+    wi_err = _max_abs_err(zip(refine_windows(*k3), refine_windows_plain(*k3)))
+    K, N = off.shape
+    rows = [
+        (quant_spread, "frontend.cu", "frontend_pallas.py:108", fe_err,
+         lambda: quant_spread(*fe0), lambda: quant_spread_plain(*fe0),
+         f"tile {tile.shape[0]}x{tile.shape[1]} T=4",
+         _frontend_work(1, tile.shape[0], tile.shape[1], 1, 8, T_LEVELS[0],
+                        False, False)),
+        (coarse_scores, "coarse.cu", "similarity_pallas.py:55", co_err,
+         lambda: coarse_scores(*k2), lambda: coarse_scores_plain(*k2),
+         f"tile K={K} N={N} M={M1}", _coarse_work(lms[1], off, M1, True)),
+        (refine_windows, "refine.cu", "refine_pallas.py:67", wi_err,
+         lambda: refine_windows(*k3), lambda: refine_windows_plain(*k3),
+         f"tile C={cap} N={banks[0].fx.shape[1]} ({int(valid.sum())} live)",
+         _refine_work(lms[0], banks[0], k, valid)),
+    ]
+    if plan is not None:
+        ch = (lms[1], plan, pos, rmin)
+        ch_err = _max_abs_err(zip(chain_scores(*ch), chain_scores_plain(*ch)))
+        rows.append((chain_scores, "chain.cu", "similarity_pallas.py:973",
+                     ch_err, lambda: chain_scores(*ch),
+                     lambda: chain_scores_plain(*ch),
+                     f"tile K={K} M={M1}",
+                     _chain_work(lms[1], plan, K, M1)))
+    records = []
+    for fn, src, replaces, err, kern, plain, shape, work in rows:
+        if err:
+            raise AssertionError(f"{path}: {fn.__name__} disagrees with its "
+                                 f"twin at {shape}: max_abs_err {err}")
+        ms = _time_ms(kern, 10)
+        plain_ms = _time_ms(plain, 2)
+        records.append(_record(fn, src, replaces, err, launches, path, ms,
+                               plain_ms, work, shape))
+        print(f"time {fn.__name__} [{path}, {shape}]: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{records[-1]['bound_ms']:.4f} ms "
+              f"({records[-1]['bound_by']}), equal to its twin, on {card}")
+    return records
+
+
+def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
+    """Phase 15: the sharded paths (``parallel/``) at full width on one
+    card, every mesh's shards round-robin on it, each path held to the
+    port's single-device result (which earlier phases hold to the JAX
+    goldens), with the launch counters zeroed before and read after each.
+
+    1. Spatial: the 4096^2 frame (``_huge_frame``) on 4 tiles with the
+       default halo, on rot1000x63 and rot10000x63 (the planner's
+       decision at the tile's coarse size recorded), threshold 85, at a
+       cap that holds every tile's candidates (no
+       tile may overflow): equal to the whole frame's ``Detector.match``
+       (rot1000x63) or ``match_batch``'s first step at a cap that holds
+       every candidate (rot10000x63: ``match``'s re-run would take the
+       map route over up to 10,000 level-0 maps of 1024^2 cells, 42 GB).
+       Caps are the smallest multiple of 1024 that holds the candidates
+       (``_cap_holding``). The
+       tile's kernels against their twins (``_tile_kernels``). Timed:
+       whole frame, 2 and 4 tiles (rot1000x63), whole frame and 4 tiles
+       (rot10000x63), with each call's peak device memory.
+    2. Mesh: the 8 flagship frames (seeds 3-10) on rot1000x63 over
+       meshes (1, 4), (2, 2) and (4, 1), and rot10000x63 over (1, 4)
+       with a chain plan per slice where the planner engages, at a cap
+       that holds every candidate: each frame's list equal to its own
+       ``Detector.match``; frames/s of each mesh and of single-device
+       ``match_batch``.
+    3. Training: phase 10's 64-frame sweep (gray masked, BGR) through
+       ``add_templates_sharded`` on 4 shards equal to ``add_templates``.
+    4. Production: rot1000x128 on seeds 7-14 through
+       ``multichip_refine_step`` on 4 shards equal to per-frame
+       ``match_refine_batch`` bit for bit.
+    5. ``cli match --spatial-shards 4`` on the 4096^2 frame as a PNG
+       prints the lines of ``cli match``; the four examples run.
+    On one card the shards run one after another: every time here is a
+    one-card time."""
+    import io
+    import shutil
+    import tempfile
+    import warnings
+    from functools import partial
+
+    from shape_based_matching_tpu_torch import Detector, match_refine_batch
+    from shape_based_matching_tpu_torch.examples import (
+        deployment_loop, multichip_match, streaming_match,
+        train_rotation_bank)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows)
+    from shape_based_matching_tpu_torch.parallel import mesh as pm
+    from shape_based_matching_tpu_torch.parallel import spatial as ps
+    from shape_based_matching_tpu_torch.utils.imageio import save_image
+    from shape_based_matching_tpu_torch.utils.synthetic import (
+        synthetic_shape_image)
+
+    kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
+               coarse_maps, map_refine)
+
+    def counted(fn):
+        """fn()'s result and the launches it made, every count zeroed
+        just before."""
+        for kern in kernels:
+            kern.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {kern.__name__: kern.launches for kern in kernels}
+
+    def launched(launches: dict, need: set, what: str) -> None:
+        if not all(launches[n] for n in need):
+            raise AssertionError(f"{what}: a kernel of {sorted(need)} was "
+                                 f"not launched: {launches}")
+
+    def detector(snap: str):
+        det = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+        det.class_templates["bench"] = trained[snap].class_templates["bench"]
+        return det
+
+    def n_above_whole(det, frames: np.ndarray) -> int:
+        """The most candidates of any frame for the whole bank."""
+        lms, sizes, thr, _ = det._prepare(frames, None, THRESHOLD,
+                                          ["bench"])
+        return int(det._step(lms, "bench", thr, sizes, 256)[5].max())
+
+    records, report = [], {}
+    frame = _huge_frame()
+
+    # 1. spatial
+    report["spatial"] = {}
+    for snap in ("rot1000x63", "rot10000x63"):
+        det = detector(snap)
+        banks = det._get_banks("bench")
+        cache = partial(det._shard_cached, "bench")
+        halo = ps.default_halo(banks, T_LEVELS)
+        out = {"halo": halo}
+        for n in ((2, SHARDS) if snap == "rot1000x63" else (SHARDS,)):
+            m = ps.make_spatial_mesh(n)
+            tile_h = HUGE // n + 2 * halo
+            t0 = time.perf_counter()
+            chains = pm.shard_chains(m, banks[-1], T_LEVELS[-1],
+                                     (HUGE // 2, tile_h // 2), 8, False,
+                                     cache)
+            plan_s = time.perf_counter() - t0
+            step = ps.spatial_match_step(m, T_LEVELS, (HUGE, HUGE), n, halo)
+            tiles = ps.slice_tiles(frame, n, halo)
+            n_above = step(tiles, det.weak_threshold, THRESHOLD,
+                           pm.shard_banks(m, banks, False, cache),
+                           chains)[5].tolist()
+            cap = _cap_holding(max(n_above))
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")  # no tile may overflow
+                got, launches = counted(lambda: ps.match_huge_frame(
+                    det, frame, THRESHOLD, mesh=m, cand_cap=cap))
+            launched(launches, {"quant_spread", "refine_windows",
+                                "chain_scores" if chains is not None
+                                else "coarse_scores"}, f"spatial {snap}")
+            ms = _host_ms(lambda: ps.match_huge_frame(
+                det, frame, THRESHOLD, mesh=m, cand_cap=cap), 3)
+            gb = _peak_gb(lambda: ps.match_huge_frame(
+                det, frame, THRESHOLD, mesh=m, cand_cap=cap))
+            out[f"{n}_shards"] = {
+                "tile_h": tile_h, "n_above": n_above, "cap": cap,
+                "chain": chains is not None, "plan_s": plan_s,
+                "launches": launches, "ms": ms, "peak_gb": gb,
+                "matches": len(got)}
+            if n == SHARDS:
+                tile_got, tile_launches = got, launches
+                tile_cap, tile_plan = cap, (None if chains is None
+                                            else chains[1])
+        n_whole = n_above_whole(det, frame[None])
+        if snap == "rot1000x63":
+            def whole():
+                return det.match(frame, THRESHOLD)
+        else:
+            whole_cap = _cap_holding(n_whole)
+
+            def whole():
+                return det.match_batch(frame[None], THRESHOLD, ["bench"],
+                                       cand_cap=whole_cap)[0]
+        want = whole()
+        if not want or _keys(tile_got) != _keys(want):
+            raise AssertionError(f"spatial {snap}: the 4 tiles' list "
+                                 f"({len(tile_got)}) differs from the whole "
+                                 f"frame's ({len(want)})")
+        out["whole"] = {"n_above": n_whole, "ms": _host_ms(whole, 3),
+                        "peak_gb": _peak_gb(whole), "matches": len(want)}
+        records += _tile_kernels(
+            det, banks, ps.slice_tiles(frame, SHARDS, halo)[1], tile_cap,
+            tile_plan, tile_launches, f"spatial 4096^2 {snap}", card)
+        shards = "; ".join(
+            f"{n} tiles of {o['tile_h']} rows {o['ms']:.4f} ms, peak "
+            f"{o['peak_gb']:.2f} GB (n_above per tile {o['n_above']}, cap "
+            f"{o['cap']}, chain {'engaged' if o['chain'] else 'declined'})"
+            for n, o in ((n, out[f"{n}_shards"]) for n in (2, SHARDS)
+                         if f"{n}_shards" in out))
+        print(f"spatial {snap} 4096^2 (halo {halo}): the 4 tiles' list "
+              f"equals the whole frame's ({len(want)} matches, n_above "
+              f"{n_whole}); whole frame {out['whole']['ms']:.4f} ms, peak "
+              f"{out['whole']['peak_gb']:.2f} GB; {shards}; launches "
+              f"{tile_launches}; one card ({card})")
+        report["spatial"][snap] = out
+
+    # 2. the data x templ mesh
+    golden = json.load(open(GOLDEN))
+    cfg = golden["config"]
+    batch = np.stack([_scene({**cfg, "scene_seed": cfg["scene_seed"] + i})
+                      for i in range(BATCH)])
+    report["mesh"] = {}
+    for snap, shapes in (("rot1000x63", MESH_SHAPES),
+                         ("rot10000x63", ((1, SHARDS),))):
+        det = detector(snap)
+        single = [_keys(det.match(f, THRESHOLD)) for f in batch]
+        cap = _cap_holding(n_above_whole(det, batch))
+        b8_ms = _host_ms(lambda: det.match_batch(batch, THRESHOLD), 3)
+        out = {"cap": cap, "single_b8_fps": BATCH * 1e3 / b8_ms}
+        for data, templ in shapes:
+            m = pm.make_mesh(data * templ, data=data)
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                got, launches = counted(lambda: pm.match_images_sharded(
+                    det, batch, THRESHOLD, mesh=m, cand_cap=cap))
+            plans = det._sharded.get(("bench", "plans", templ,
+                                      (batch.shape[2] // 2,
+                                       batch.shape[1] // 2)))
+            launched(launches, {"quant_spread", "refine_windows",
+                                "chain_scores" if plans is not None
+                                else "coarse_scores"},
+                     f"mesh {snap} {data}x{templ}")
+            if [_keys(g) for g in got] != single:
+                raise AssertionError(f"mesh {snap} {data}x{templ}: a "
+                                     f"frame's list differs from its match")
+            ms = _host_ms(lambda: pm.match_images_sharded(
+                det, batch, THRESHOLD, mesh=m, cand_cap=cap), 3)
+            out[f"{data}x{templ}"] = {"fps": BATCH * 1e3 / ms,
+                                      "chain": plans is not None,
+                                      "launches": launches}
+            print(f"mesh {snap} {data}x{templ}: 8 frames equal their "
+                  f"single-device lists ({sum(map(len, single))} matches, "
+                  f"cap {cap}, chain "
+                  f"{'engaged' if plans is not None else 'declined'}); "
+                  f"{BATCH * 1e3 / ms:.1f} frames/s against "
+                  f"{out['single_b8_fps']:.1f} single-device B=8; launches "
+                  f"{launches}; one card ({card})")
+        report["mesh"][snap] = out
+
+    # 3. training
+    gray = np.stack([synthetic_shape_image(256, s) for s in range(64)])
+    masks = np.stack([(np.random.RandomState(s).rand(256, 256) > 0.1)
+                      .astype(np.uint8) * 255 for s in range(64)])
+    report["train"] = {}
+    for mode, frames, msk in (("gray masked", gray, masks),
+                              ("bgr", _bgr(gray), None)):
+        local = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+        t0 = time.perf_counter()
+        ids = local.add_templates(frames, "c", msk)
+        t1 = time.perf_counter()
+        shard = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+        got = pm.add_templates_sharded(shard, frames, "c", msk,
+                                       mesh=pm.make_mesh(SHARDS))
+        t2 = time.perf_counter()
+        if got != ids or _fields(shard.class_templates["c"]) != _fields(
+                local.class_templates["c"]):
+            raise AssertionError(f"sharded training {mode}: differs from "
+                                 f"add_templates")
+        report["train"][mode] = {"fps_local": 64 / (t1 - t0),
+                                 "fps_sharded": 64 / (t2 - t1)}
+        print(f"train {mode}: add_templates_sharded on {SHARDS} shards "
+              f"equals add_templates on 64 frames (theta bits included): "
+              f"{64 / (t2 - t1):.1f} frames/s against {64 / (t1 - t0):.1f}; "
+              f"one card ({card})")
+
+    # 4. the production tier
+    det = detector("rot1000x128")
+    banks = det._get_banks("bench")
+    cache = partial(det._shard_cached, "bench")
+    frames = np.stack([_scene({**cfg, "scene_seed": s})
+                       for s in PRODUCTION_SEEDS])
+    m = pm.make_mesh(SHARDS)
+    step = pm.multichip_refine_step(m, T_LEVELS, frames.shape[1:],
+                                    cand_cap=256, top_c=32, iters=12,
+                                    radius=8)
+    placed = pm.shard_banks(m, banks, False, cache)
+    chains = pm.shard_chains(m, banks[-1], T_LEVELS[-1],
+                             (frames.shape[2] // 2, frames.shape[1] // 2), 8,
+                             False, cache)
+
+    def tier():
+        return step(frames, det.weak_threshold, THRESHOLD, placed, chains)
+
+    def per_frame():
+        return [match_refine_batch(det, frames[b:b + 1], THRESHOLD, top_c=32,
+                                   iters=12, radius=8, cand_cap=256)
+                ["bench"][0] for b in range(len(frames))]
+
+    got, launches = counted(tier)
+    launched(launches, {"quant_spread", "coarse_scores", "refine_windows"},
+             "production tier")
+    for b, r in enumerate(per_frame()):
+        for i, (g, w) in enumerate(zip(got, [*r["icp"], r["k"], r["x"],
+                                             r["y"], r["score"]])):
+            if w.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g[b], w):
+                raise AssertionError(f"production tier: frame {b} output "
+                                     f"{i} differs from match_refine_batch")
+    tier_ms, loop_ms = _host_ms(tier, 3), _host_ms(per_frame, 3)
+    report["production"] = {"ms": tier_ms, "per_frame_ms": loop_ms,
+                            "refined": int(got[6].sum()),
+                            "launches": launches}
+    print(f"production tier on {SHARDS} shards: seeds 7-14 equal per-frame "
+          f"match_refine_batch bit for bit ({int(got[6].sum())} refined); "
+          f"{tier_ms / len(frames):.4f} ms a frame against "
+          f"{loop_ms / len(frames):.4f} one frame at a time; launches "
+          f"{launches}; one card ({card})")
+
+    # 5. the CLI and the examples
+    tmp = tempfile.mkdtemp(prefix="sbm_sharded_")
+    try:
+        det = detector("rot1000x63")
+        reg = os.path.join(tmp, "registry")
+        os.makedirs(os.path.join(tmp, "frames"))
+        det.write_classes(os.path.join(reg, "%s.yaml.gz"))
+        det.save_settings(os.path.join(reg, "detector_linemod.yaml"),
+                          templates_dir=reg, classes=["bench"])
+        _registry(["bench"], reg)
+        save_image(frame, os.path.join(tmp, "frames", "huge.png"))
+        argv = ["--device", DEVICE, "match", "--model-dir", reg,
+                "--test-dir", os.path.join(tmp, "frames"), "--threshold",
+                str(THRESHOLD), "--nms", "0.5", "--top-k", "1000", "--gray"]
+        single, single_s = _cli(argv)
+        (sharded, sharded_s), launches = counted(
+            lambda: _cli(argv + ["--spatial-shards", str(SHARDS)]))
+        launched(launches, {"quant_spread", "coarse_scores",
+                            "refine_windows"}, "cli --spatial-shards")
+        if _parse_match(sharded)[0] != _parse_match(single)[0]:
+            raise AssertionError("cli match --spatial-shards 4 prints other "
+                                 "lines than cli match")
+        print(f"cli match --spatial-shards {SHARDS} on the 4096^2 PNG prints "
+              f"the lines of cli match ({len(single)} lines; "
+              f"{sharded_s:.1f} s and {single_s:.1f} s a process call); "
+              f"launches {launches}")
+        report["cli"] = {"lines": len(single), "sharded_s": sharded_s,
+                         "single_s": single_s, "launches": launches}
+
+        def examples():
+            out = {}
+            for name, run in (
+                    ("train_rotation_bank", lambda: train_rotation_bank.main(
+                        os.path.join(tmp, "bank"), device=DEVICE)),
+                    ("streaming_match", lambda: streaming_match.main(
+                        2, device=DEVICE)),
+                    ("deployment_loop", lambda: deployment_loop.main(
+                        3, device=DEVICE)),
+                    ("multichip_match", lambda: multichip_match.main(
+                        SHARDS, device=DEVICE))):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    run()
+                out[name] = buf.getvalue().splitlines()
+            return out
+
+        lines, launches = counted(examples)
+        launched(launches, {"quant_spread", "coarse_scores",
+                            "refine_windows"}, "examples")
+        for name, ls in lines.items():
+            for line in ls:
+                print(f"example {name}: {line}")
+        report["examples"] = {"lines": lines, "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2543,6 +3028,13 @@ def main() -> None:
     t7 = time.perf_counter()
     report["phase_seconds_14"] = t7 - t6
     print(f"seconds: cli and model directory {t7 - t6:.1f}")
+
+    # 15. the sharded paths
+    sharded_records, report["sharded"] = sharded_phase(trained, card)
+    records += sharded_records
+    t8 = time.perf_counter()
+    report["phase_seconds_15"] = t8 - t7
+    print(f"seconds: sharded paths {t8 - t7:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -16,6 +16,12 @@ tensors it launches the kernel (built from ``csrc/`` with nvcc at first
 use) or raises. The host helpers (training's greedy passes, NMS) build
 from ``csrc/host.cpp`` with the host C++ compiler at first use.
 
+Several cards, or several shards of one: ``match_huge_frame`` (row tiles
+of one large frame, ``match --spatial-shards N`` on the command line),
+``match_images_sharded`` (frames x template bank over a ``make_mesh``),
+``add_templates_sharded`` and ``multichip_refine_step`` (``parallel/``);
+runnable demos in ``examples/``.
+
 Model directories (``det.write_classes``, ``det.save_settings``,
 ``get_instance``) are the reference's OpenCV YAML; the command line is
 ``python -m shape_based_matching_tpu_torch --device cuda|cpu
@@ -29,6 +35,12 @@ from .models.icp import (IcpResult, MatchIcpHandle, match_icp,
 from .models.refine import RefinedPose, refine_detections
 from .models.shape_info import ShapeInfoProducer
 from .models.template import Feature, Template
+from .parallel.mesh import (Mesh, add_templates_sharded, make_mesh,
+                            match_images_sharded, multichip_match_step,
+                            multichip_refine_step, multichip_train_step,
+                            shard_pad_bank)
+from .parallel.spatial import (make_spatial_mesh, match_huge_frame,
+                               required_halo)
 from .utils.nms import nms_boxes
 
 __all__ = [
@@ -48,4 +60,15 @@ __all__ = [
     "match_refine_batch",
     "MatchIcpHandle",
     "IcpResult",
+    "Mesh",
+    "make_mesh",
+    "make_spatial_mesh",
+    "match_images_sharded",
+    "match_huge_frame",
+    "required_halo",
+    "add_templates_sharded",
+    "multichip_match_step",
+    "multichip_train_step",
+    "multichip_refine_step",
+    "shard_pad_bank",
 ]

@@ -208,11 +208,30 @@ def cmd_match(args) -> int:
         print(f"no images in {args.test_dir}", file=sys.stderr)
         return 1
 
+    spatial_mesh = None
+    if args.spatial_shards:
+        from .parallel.spatial import make_spatial_mesh
+
+        # --device cuda: every visible card, round-robin past them
+        spatial_mesh = make_spatial_mesh(
+            args.spatial_shards,
+            None if args.device == "cuda" else [args.device])
+
     stats = CSVStat(["MATCH", "NMS", "VERIFY"])
     for path in paths:
         img = crop_to_stride(_load_image(path, gray=args.gray), stride)
         timer = Timer()
-        matches = det.match(img, args.threshold)
+        if spatial_mesh is not None:
+            # row-sharded huge-frame match (exact; parallel/spatial.py);
+            # the frame height must divide by the shard count. Tiles that
+            # overflow the cap re-run at a cap that holds them all, so the
+            # lines are those of the single-device match
+            from .parallel.spatial import match_huge_frame
+
+            matches = match_huge_frame(det, img, args.threshold,
+                                       mesh=spatial_mesh, cand_cap=None)
+        else:
+            matches = det.match(img, args.threshold)
         timer.record("MATCH")
 
         keep = nms_boxes(*_boxes(det, matches), 0.0, args.nms)
@@ -856,6 +875,9 @@ def main(argv=None) -> int:
     ma.add_argument("--debug", action="store_true",
                     help="dump quantized-orientation images")
     ma.add_argument("--gray", action="store_true")
+    ma.add_argument("--spatial-shards", type=int, default=0,
+                    help="row-shard each frame over N devices "
+                         "(parallel/spatial.py; 0 = single device)")
     ma.add_argument("--icp", action="store_true",
                     help="subpixel sim2 pose refinement per kept match "
                          "(models/icp.py)")

@@ -10,7 +10,8 @@ magnitude, label and angle at the strong ones; the host replays the
 greedy passes (``models/training.py``). ``add_template`` is the same
 sweep at B=1; ``add_template(s)_rotate`` derive rotated templates without
 re-extracting features. Every add drops the class's cached banks, max
-dims and chain plans, and every merged bank that holds the class.
+dims and chain plans, every merged bank that holds the class, and what
+the sharded paths placed on their devices (``_shard_cached``).
 
 **Matching.** Frames are gray ``[H, W]`` or BGR ``[H, W, 3]`` uint8,
 optionally with a uint8 mask each, matched with 8 orientations or the
@@ -199,6 +200,16 @@ def _as_tensor(a) -> torch.Tensor:
         np.array(a))
 
 
+def _planar(frames, device) -> torch.Tensor:
+    """uint8 frames, gray [B, H, W] or BGR [B, H, W, 3] (numpy or a
+    tensor), on `device` as the frontend and the gradients read them:
+    [B, H, W], or planar [B, 3, H, W]; contiguous."""
+    frames = _as_tensor(frames).to(device)
+    if frames.dim() == 4:
+        frames = frames.permute(0, 3, 1, 2)
+    return frames.contiguous()
+
+
 def _strong_lower_bound(strong_threshold: float) -> float:
     """A float32 two ulps under strong_threshold^2: the device pre-filter
     keeps every borderline pixel, and the host applies the exact float64
@@ -240,6 +251,40 @@ def _train_level(src: torch.Tensor, msk: torch.Tensor | None,
                         quant.angle_ori[b, y, x].view(torch.int32)], dim=1)
     host = torch.cat([e, st.to(torch.int32), vals]).cpu().numpy()
     return host, e.shape[0], st.shape[0]
+
+
+def _sweep_inputs(sources, object_masks) -> tuple:
+    """A training sweep's frames and masks as numpy arrays, checked: uint8
+    [B, H, W] or [B, H, W, 3] frames, None or uint8 [B, H, W] masks."""
+    sources = np.asarray(sources)
+    if sources.dtype != np.uint8 or not (
+            sources.ndim == 3 or (sources.ndim == 4
+                                  and sources.shape[-1] == 3)):
+        raise ValueError("add_templates expects uint8 [B, H, W] or "
+                         "[B, H, W, 3] frames")
+    masks = None if object_masks is None else np.asarray(object_masks)
+    if masks is not None and (masks.dtype != np.uint8
+                              or masks.shape != sources.shape[:3]):
+        raise ValueError("masks must be uint8 [B, H, W] like the frames")
+    return sources, masks
+
+
+def _train_levels(src: torch.Tensor, msk: torch.Tensor | None, levels: int,
+                  weak_threshold: float, strong_lo: float, n_ori: int,
+                  patch_2843: bool = False) -> list:
+    """The device half of a training chunk at every pyramid level (frames
+    and masks as ``_train_level`` takes them, on the device; the masks'
+    nearest resize down the pyramid): per level ``((array, n_e, n_s),
+    (h, w))``, the level's ``_train_level`` download and size."""
+    out = []
+    for l in range(levels):
+        if l > 0:
+            src = pyr_down_u8(src)
+            if msk is not None:
+                msk = resize_nearest(msk, src.shape[-2:])
+        out.append((_train_level(src, msk, weak_threshold, strong_lo, n_ori,
+                                 patch_2843), tuple(src.shape[-2:])))
+    return out
 
 
 _instance: "Detector | None" = None
@@ -316,6 +361,9 @@ class Detector:
         self._chain_plans: dict[tuple, ChainPlan | None] = {}
         # merged group -> (class_of_k, tid_of_k), at most _MERGED_CACHE
         self._merged: dict[tuple, tuple] = {}
+        # (group, ...) -> a group's banks, bank slices or chain plans placed
+        # on a shard's device (parallel/; _shard_cached)
+        self._sharded: dict[tuple, object] = {}
         # refine levels run per route ("window", "maps"), for tests and
         # profiles to see which route a match took
         self.refine_routes: Counter = Counter()
@@ -363,57 +411,50 @@ class Detector:
         more, while here the device hands over exactly as many as there
         are."""
         del cand_cap
-        sources = np.asarray(sources)
-        if sources.dtype != np.uint8 or not (
-                sources.ndim == 3 or (sources.ndim == 4
-                                      and sources.shape[-1] == 3)):
-            raise ValueError("add_templates expects uint8 [B, H, W] or "
-                             "[B, H, W, 3] frames")
-        masks = None if object_masks is None else np.asarray(object_masks)
-        if masks is not None and (masks.dtype != np.uint8
-                                  or masks.shape != sources.shape[:3]):
-            raise ValueError("masks must be uint8 [B, H, W] like the frames")
+        sources, masks = _sweep_inputs(sources, object_masks)
         nfeat = int(num_features) if num_features > 0 else self.num_features
         strong_lo = _strong_lower_bound(self.strong_threshold)
         pyramids = self.class_templates.setdefault(class_id, [])
+        meta = (sscales, orientations, tag_field_ids, fiducial_src)
         ids = []
         for b0 in range(0, sources.shape[0], chunk):
-            src = torch.from_numpy(np.array(sources[b0:b0 + chunk])).to(
-                self.device)
-            if src.dim() == 4:  # planar channels, as the gradients read them
-                src = src.permute(0, 3, 1, 2)
-            src = src.contiguous()
+            src = _planar(sources[b0:b0 + chunk], self.device)
             msk = (None if masks is None else
-                   torch.from_numpy(np.array(masks[b0:b0 + chunk])).to(
-                       self.device))
-            levels = []
-            for l in range(self.pyramid_levels):
-                if l > 0:
-                    src = pyr_down_u8(src)
-                    if msk is not None:
-                        msk = resize_nearest(msk, src.shape[-2:])
-                levels.append((_train_level(src, msk, self.weak_threshold,
-                                            strong_lo, self.num_orientations,
-                                            self.patch_2843),
-                               tuple(src.shape[-2:])))
-            for bi in range(src.shape[0]):
-                b = b0 + bi
-                tp = self._train_frame(bi, levels, nfeat)
-                if tp is None:
-                    ids.append(-1)
-                    continue
-                for t in tp:
-                    t.sscale = -1.0 if sscales is None else float(sscales[b])
-                    t.orientation = (-1.0 if orientations is None
-                                     else float(orientations[b]))
-                    t.tag_field_id = (0 if tag_field_ids is None
-                                      else int(tag_field_ids[b]))
-                    t.fiducial_src = fiducial_src
-                crop_templates(tp)
-                pyramids.append(tp)
-                ids.append(len(pyramids) - 1)
+                   _planar(masks[b0:b0 + chunk], self.device))
+            levels = _train_levels(src, msk, self.pyramid_levels,
+                                   self.weak_threshold, strong_lo,
+                                   self.num_orientations, self.patch_2843)
+            self._consume_chunk(b0, src.shape[0], levels, nfeat, pyramids,
+                                ids, meta)
         self._invalidate(class_id)
         return ids
+
+    def _consume_chunk(self, b0: int, n: int, levels: list, nfeat: int,
+                       pyramids: list, ids: list, meta: tuple) -> None:
+        """The host half of a chunk of frames b0 .. b0 + n - 1 of a sweep,
+        in frame order, from its device half (``_train_levels``'s list):
+        each frame's pyramid (``_train_frame``) with the sweep's metadata
+        (sscales, orientations, tag_field_ids, fiducial_src), cropped and
+        appended to `pyramids`; its id, or -1, appended to `ids`. Shared
+        by ``add_templates`` and the mesh-sharded sweep
+        (``parallel/mesh.add_templates_sharded``)."""
+        sscales, orientations, tag_field_ids, fiducial_src = meta
+        for bi in range(n):
+            b = b0 + bi
+            tp = self._train_frame(bi, levels, nfeat)
+            if tp is None:
+                ids.append(-1)
+                continue
+            for t in tp:
+                t.sscale = -1.0 if sscales is None else float(sscales[b])
+                t.orientation = (-1.0 if orientations is None
+                                 else float(orientations[b]))
+                t.tag_field_id = (0 if tag_field_ids is None
+                                  else int(tag_field_ids[b]))
+                t.fiducial_src = fiducial_src
+            crop_templates(tp)
+            pyramids.append(tp)
+            ids.append(len(pyramids) - 1)
 
     def _train_frame(self, bi: int, levels: list, nfeat: int):
         """The host half for frame `bi` of a chunk: per level, greedy
@@ -507,8 +548,9 @@ class Detector:
         self._banks.pop(group, None)
         self._max_dims.pop(group, None)
         self._merged.pop(group, None)
-        for key in [k for k in self._chain_plans if k[0] == group]:
-            del self._chain_plans[key]
+        for cache in (self._chain_plans, self._sharded):
+            for key in [k for k in cache if k[0] == group]:
+                del cache[key]
 
     def _get_banks(self, group) -> list:
         """The LevelBanks of a bank group: a class id, or a sorted tuple
@@ -575,6 +617,16 @@ class Detector:
             self._chain_plans[key] = (None if plan is None
                                       else plan_to_device(plan, self.device))
         return self._chain_plans[key]
+
+    def _shard_cached(self, group, key: tuple, make):
+        """What a sharded path keeps of a bank group for one shard (its
+        banks, a bank slice or a chain plan, on the shard's device):
+        ``make()`` once per (group, key), dropped with the group's other
+        caches."""
+        full = (group,) + key
+        if full not in self._sharded:
+            self._sharded[full] = make()
+        return self._sharded[full]
 
     def _is_pathological(self, group, level: int, size_wh) -> bool:
         """Whether a template of the group is wider or taller than the
@@ -668,10 +720,7 @@ class Detector:
             raise ValueError("match_batch expects uint8 [B, H, W] or "
                              "[B, H, W, 3] frames")
         self._validate_size(frames.shape[1:3])
-        frames = frames.to(self.device)
-        if color:  # planar channels, as the frontend reads them
-            frames = frames.permute(0, 3, 1, 2)
-        frames = frames.contiguous()
+        frames = _planar(frames, self.device)
         if masks is not None:
             masks = _as_tensor(masks)
             if masks.dtype != torch.uint8 or masks.shape != (

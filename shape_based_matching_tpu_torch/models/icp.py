@@ -525,11 +525,24 @@ def match_refine_batch(detector, frames, threshold: float, class_ids=None,
     frames = frames.to(detector.device)
     packed = detector.match_batch(frames, threshold, class_ids,
                                   cand_cap=cand_cap, as_matches=False)
-    out = {cid: [] for cid in packed}
     banks0 = {cid: detector._get_banks(cid)[0] for cid in packed}
+    return refine_frames(frames, detector.weak_threshold, packed, banks0,
+                         top_c, iters, radius)
+
+
+def refine_frames(frames: torch.Tensor, weak_threshold: float, packed: dict,
+                  banks0: dict, top_c: int, iters: int, radius: int) -> dict:
+    """The refine half of ``match_refine_batch``: B gray frames [B, H, W]
+    on the device, each class's packed candidates ``packed[cid] = (k, x,
+    y, score, valid, overflow)`` ([B, C] tensors, overflow [B]) and its
+    level-0 bank ``banks0[cid]`` -> {class_id: [{icp, k, x, y, score,
+    overflow} per frame]}. Frames are the outer loop, so one edge field is
+    live at a time. The mesh's production tier
+    (``parallel/mesh._local_refine``) runs it on each shard's frames."""
+    out = {cid: [] for cid in packed}
     for b in range(frames.shape[0]):
         off, normal, _edge, has, subpix = edge_nearest_field(
-            frames[b].contiguous(), detector.weak_threshold, radius)
+            frames[b].contiguous(), weak_threshold, radius)
         for cid, (k, x, y, sc, valid, overflow) in packed.items():
             bank0 = banks0[cid]
             res, kk, ox, oy, top_sc = refine_packed_candidates(

@@ -139,3 +139,28 @@ def plan_chain(bank, T: int, size_wh, n_ori: int = 8) -> ChainPlan | None:
     return ChainPlan(np.asarray(prog_start, np.int32),
                      np.asarray(slot_start, np.int32),
                      np.asarray(slots, np.int32), M, L)
+
+
+def plan_chain_sharded(bank, n_shards: int, T: int, size_wh,
+                       n_ori: int = 8) -> list | None:
+    """Chain plans for a bank split into `n_shards` equal template slices
+    (the mesh's ``templ`` axis): ``plan_chain`` of each slice, or None
+    when K is not a multiple of n_shards or when any slice declines. The
+    all-or-nothing rule is the JAX package's
+    (``ops/pallas/chain_plan.py::plan_chain_sharded``), so both packages
+    score the same slices with the same coarse kernel. JAX pads every
+    slice's plan to the longest and re-bases its output rows, which one
+    SPMD program needs; here each shard launches its own plan."""
+    fields = [np.asarray(f) for f in bank]
+    K = fields[0].shape[0]
+    if K % n_shards:
+        return None
+    k_loc = K // n_shards
+    plans = []
+    for s in range(n_shards):
+        part = type(bank)(*(f[s * k_loc:(s + 1) * k_loc] for f in fields))
+        plan = plan_chain(part, T, size_wh, n_ori)
+        if plan is None:
+            return None
+        plans.append(plan)
+    return plans

@@ -968,3 +968,108 @@ def test_nms_host_helper_builds_on_the_card_machine(dev):
     for eta in (1.0, 0.9):
         assert nms.nms_boxes(boxes, scores, 60.0, 0.5, eta) == \
             nms.nms_boxes_plain(boxes, scores, 60.0, 0.5, eta)
+
+
+def _sharded_fixture(device, h=256, n=4):
+    """12 rotations of a 56-pixel star and `n` h x 256 scenes of it."""
+    det = Detector(num_features=48, device=device)
+    templ = synthetic.synthetic_shape_image(56, seed=0)
+    det.add_template(templ, "a", np.full_like(templ, 255))
+    det.add_templates_rotate("a", 0, [30.0 * i for i in range(1, 12)],
+                             (28.0, 28.0))
+    frames = np.stack([synthetic.synthetic_scene(h, 256, templ,
+                                                 n_instances=2 * h // 256,
+                                                 seed=s) for s in range(n)])
+    return det, frames
+
+
+def _keys(ms):
+    return [(m.class_id, m.template_id, m.x, m.y, m.similarity) for m in ms]
+
+
+def test_spatial_on_card_equals_cpu(dev):
+    """4 round-robin tiles on the card (the default mesh: every visible
+    card) give the CPU's tiles' list and the card's whole-frame match.
+    The frame is 1024 x 256: the halo (208 rows) leaves no room for
+    4 bands in 256 rows."""
+    from shape_based_matching_tpu_torch.parallel import spatial
+
+    got = []
+    for device, m in (("cpu", spatial.make_spatial_mesh(4, ["cpu"])),
+                      (dev, spatial.make_spatial_mesh(4))):
+        det, frames = _sharded_fixture(device, h=1024, n=1)
+        before = refine_windows.launches
+        got.append(_keys(spatial.match_huge_frame(det, frames[0], 75.0,
+                                                  mesh=m)))
+        assert got[-1] == _keys(det.match(frames[0], 75.0))
+    assert refine_windows.launches > before
+    assert got[0] == got[1] and got[0]
+
+
+def test_mesh_on_card_equals_cpu(dev):
+    """A (2, 2) mesh of round-robin shards on the card: the CPU mesh's
+    lists and the card's per-frame matches."""
+    from shape_based_matching_tpu_torch.parallel import mesh
+
+    got = []
+    for device, m in (("cpu", mesh.make_mesh(4, devices=["cpu"])),
+                      (dev, mesh.make_mesh(4, data=2))):
+        det, frames = _sharded_fixture(device)
+        before = coarse_scores.launches
+        per = mesh.match_images_sharded(det, frames, 75.0, mesh=m)
+        assert [_keys(p) for p in per] == [_keys(det.match(f, 75.0))
+                                           for f in frames]
+        got.append([_keys(p) for p in per])
+    assert coarse_scores.launches > before
+    assert got[0] == got[1] and all(got[0])
+
+
+def test_sharded_training_on_card_equals_cpu(dev):
+    """add_templates_sharded on 4 round-robin shards of the card trains
+    the CPU's add_templates templates, theta bits included."""
+    from shape_based_matching_tpu_torch.parallel import mesh
+
+    frames = np.stack([synthetic.synthetic_shape_image(256, s)
+                       for s in range(6)])
+    masks = (np.random.RandomState(2).rand(6, 256, 256) > 0.1).astype(
+        np.uint8) * 255
+    local = Detector(num_features=48, device="cpu")
+    ids = local.add_templates(frames, "c", masks)
+    det = Detector(num_features=48, device=dev)
+    assert mesh.add_templates_sharded(det, frames, "c", masks,
+                                      mesh=mesh.make_mesh(4),
+                                      chunk_per_dev=1) == ids
+    assert (_pyramid_fields(det.class_templates["c"])
+            == _pyramid_fields(local.class_templates["c"]))
+
+
+def test_refine_step_on_card_equals_match_refine_batch(dev):
+    """The production tier on a (2, 2) mesh of round-robin shards of the
+    card equals the card's per-frame match_refine_batch bit for bit, and
+    refines the CPU's candidates (k, x, y, valid)."""
+    from shape_based_matching_tpu_torch import match_refine_batch
+    from shape_based_matching_tpu_torch.parallel import mesh
+
+    out = {}
+    for device, m in (("cpu", mesh.make_mesh(4, devices=["cpu"])),
+                      (dev, mesh.make_mesh(4, data=2))):
+        det, frames = _sharded_fixture(device)
+        banks = det._get_banks("a")
+        step = mesh.multichip_refine_step(m, det.T_at_level, (256, 256),
+                                          cand_cap=64, top_c=4)
+        out[device] = step(frames, 30.0, 75.0,
+                           mesh.shard_banks(m, banks, False),
+                           mesh.shard_chains(m, banks[-1], 8, (128, 128), 8,
+                                             False))
+        if device == dev:
+            for b in range(4):
+                r = match_refine_batch(det, frames[b:b + 1], 75.0, top_c=4,
+                                       iters=10, cand_cap=64)["a"][0]
+                for g, w in zip(out[dev], [*r["icp"], r["k"], r["x"],
+                                           r["y"], r["score"]]):
+                    if w.dtype == torch.float32:
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    assert torch.equal(g[b], w)
+    assert int(out["cpu"][6].sum()) > 0
+    for i in (6, 7, 8, 9):  # valid, template id, x, y
+        assert torch.equal(out[dev][i].cpu(), out["cpu"][i])

@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: it never imports JAX (training,
-persistence, the CLI and the utilities included, which need neither
+persistence, the CLI, the utilities, the sharded paths and the examples
+included, which need neither
 PyYAML nor an image library either), its kernel wrappers run the plain twins (and count no launch)
 only for CPU tensors, it builds kernels only with nvcc, and a failed
 build of its host helpers raises."""
@@ -61,6 +62,16 @@ import contextlib, io
 with contextlib.redirect_stdout(io.StringIO()):
     assert cli.main(["--device", "cpu", "preprocess", "--test-dir", d,
                      "--out-dir", d + "/pre"]) == 0
+# the sharded paths and the examples import none of them either
+from shape_based_matching_tpu_torch.examples import (deployment_loop,
+                                                     multichip_match,
+                                                     streaming_match,
+                                                     train_rotation_bank)
+from shape_based_matching_tpu_torch.parallel import mesh, spatial
+sharded = mesh.match_images_sharded(
+    det, img[None], 85.0, mesh=mesh.make_mesh(2, devices=["cpu"]),
+    class_id="t")
+assert sharded[0] == det.match(img, 85.0, ["t"])
 for name in ("jax", "yaml", "PIL", "cv2"):
     assert name not in sys.modules, f"the port imported {name}"
 print(len(matches))

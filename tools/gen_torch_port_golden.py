@@ -38,6 +38,18 @@ match (template_id, x, y, similarity float32 bits) and pose fields, and
 whether the class overflowed the candidate cap of 256 (then the list
 comes from ``match`` and ``refine_matches_icp``, the overflow fallback).
 
+Three more hold the sharded paths, each from the JAX package's own
+sharded functions on 8 virtual CPU devices (``tests/test_spatial.py``'s
+and ``tests/test_sharding.py``'s fixtures, ``SHARDED``):
+``torch_port_spatial1_matches.json`` and ``torch_port_spatial3_matches.json``,
+``match_huge_frame`` on 4 shards of a 640 x 256 frame with instances
+across the band edges, one class of 8 rotations and three classes; and
+``torch_port_mesh_matches.json``, ``match_images_sharded`` of four 192^2
+frames on meshes (2, 4), (4, 2) and (1, 2). Rows are (class_id,
+template_id, x, y, similarity float32 bits); ``build_fixture`` makes the
+detector and frames of a configuration with either package
+(``tests/test_torch_spatial.py``, ``tests/test_torch_mesh.py``).
+
 ``tests/test_torch_detector.py``, ``tests/test_torch_icp.py`` and
 ``tests/test_torch_patch2843.py`` hold the port's CPU path, and
 ``chip_smoke.py`` the CUDA path, to these files.
@@ -115,6 +127,100 @@ PRODUCTION = dict(_config(1000, 128, scene_seed=7), top_c=32, iters=12,
                   radius=8, cand_cap=256)
 
 
+# the sharded goldens: tests/test_spatial.py's two scenes and
+# tests/test_sharding.py's fixture
+SHARDED = {
+    "spatial1": {
+        "classes": [["bench", 56, 0, "rotated", 8]], "num_features": 48,
+        "height": 640, "width": 256, "scene_seed": 3,
+        # instances across the whole frame, on the band edges (rows 160,
+        # 320, 480) too: (class, y, x)
+        "pastes": [["bench", 10, 30], ["bench", 140, 100],
+                   ["bench", 300, 60], ["bench", 455, 170],
+                   ["bench", 570, 40]],
+        "threshold": 80.0, "n_shards": 4},
+    "spatial3": {
+        # (class, template size, seed, "rotate", angle): the template and
+        # one rotation of it about its centre
+        "classes": [["c0", 56, 20, "rotate", 25.0],
+                    ["c1", 72, 21, "rotate", 50.0],
+                    ["c2", 64, 22, "rotate", 75.0]], "num_features": 48,
+        "height": 640, "width": 256, "scene_seed": 7,
+        "pastes": [["c0", 20, 30], ["c1", 140, 100], ["c2", 300, 60],
+                   ["c0", 455, 170], ["c1", 540, 40]],
+        "threshold": 78.0, "n_shards": 4},
+    "mesh": {
+        "classes": [["s", 96, 3, "rotate", 30.0, 60.0, 90.0, 120.0, 150.0]],
+        "num_features": 63, "height": 192, "width": 192,
+        # one frame a seed: synthetic_scene(..., n_instances=2, seed)
+        "scene_seeds": [17, 23, 29, 5], "n_instances": 2,
+        "threshold": 70.0, "meshes": [[2, 4], [4, 2], [1, 2]]},
+}
+
+
+def build_fixture(cfg: dict, Detector, synthetic, **det_kw) -> tuple:
+    """The detector and frames ([B, H, W] uint8) of a ``SHARDED``
+    configuration, from either package's Detector (with `det_kw`, e.g.
+    ``device="cpu"``) and synthetic module. A class is its star template
+    under a full mask, then either the template's rotations about its
+    centre ("rotate", the angles) or, as ``build_rotated_detector`` makes
+    it, n - 1 rotations in 360/n degree steps ("rotated", n)."""
+    det = Detector(num_features=cfg["num_features"], T=(4, 8), **det_kw)
+    templs = {}
+    for cid, size, seed, kind, *args in cfg["classes"]:
+        t = synthetic.synthetic_shape_image(size, seed=seed)
+        templs[cid] = t
+        assert det.add_template(t, cid, np.full_like(t, 255)) == 0
+        c = (size / 2.0, size / 2.0)
+        if kind == "rotated":
+            det.add_templates_rotate(cid, 0, [i * 360.0 / args[0]
+                                              for i in range(1, args[0])], c)
+        else:
+            for theta in args:
+                det.add_template_rotate(cid, 0, theta, c)
+    h, w = cfg["height"], cfg["width"]
+    first = templs[cfg["classes"][0][0]]
+    if "pastes" not in cfg:
+        frames = np.stack([synthetic.synthetic_scene(
+            h, w, first, n_instances=cfg["n_instances"], seed=s)
+            for s in cfg["scene_seeds"]])
+        return det, frames
+    scene = np.array(synthetic.synthetic_scene(h, w, first, n_instances=0,
+                                               seed=cfg["scene_seed"]))
+    for cid, yy, xx in cfg["pastes"]:
+        t = templs[cid]
+        th, tw = t.shape
+        scene[yy:yy + th, xx:xx + tw] = np.maximum(
+            scene[yy:yy + th, xx:xx + tw], t)
+    return det, scene[None]
+
+
+def _class_row(m) -> list:
+    return [m.class_id] + _match_row(m)
+
+
+def sharded(name: str, Detector, synthetic) -> dict:
+    """A ``SHARDED`` configuration's lists from the JAX package's
+    ``match_huge_frame`` or ``match_images_sharded``."""
+    from shape_based_matching_tpu.parallel.mesh import (make_mesh,
+                                                        match_images_sharded)
+    from shape_based_matching_tpu.parallel.spatial import (make_spatial_mesh,
+                                                           match_huge_frame)
+
+    cfg = SHARDED[name]
+    det, frames = build_fixture(cfg, Detector, synthetic)
+    if "meshes" not in cfg:
+        got = match_huge_frame(det, frames[0], cfg["threshold"],
+                               mesh=make_spatial_mesh(cfg["n_shards"]))
+        return {"config": cfg, "matches": [_class_row(m) for m in got]}
+    out = {}
+    for data, templ in cfg["meshes"]:
+        per = match_images_sharded(det, frames, cfg["threshold"],
+                                   mesh=make_mesh(data * templ, data=data))
+        out[f"{data}x{templ}"] = [[_class_row(m) for m in ms] for ms in per]
+    return {"config": cfg, "matches": out}
+
+
 def frame_and_mask(cfg: dict, synthetic) -> tuple:
     """The configuration's frame ([H, W] or [H, W, 3] uint8) and mask
     ([H, W] uint8 or None), from a module with the synthetic_* functions
@@ -175,14 +281,24 @@ def production_icp(Detector, synthetic) -> dict:
 
 def main(names) -> None:
     sys.path.insert(0, ROOT)
+    # the sharded goldens run on 8 virtual CPU devices
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from shape_based_matching_tpu import Detector
     from shape_based_matching_tpu.utils import synthetic
 
-    for name in names or [*CONFIGS, "production_icp"]:
+    for name in names or [*CONFIGS, "production_icp", *SHARDED]:
         out = golden_path(name)
+        if name in SHARDED:
+            data = sharded(name, Detector, synthetic)
+            with open(out, "w") as f:
+                json.dump(data, f, indent=0)
+                f.write("\n")
+            print(f"{name} -> {out}")
+            continue
         if name == "production_icp":
             data = production_icp(Detector, synthetic)
             with open(out, "w") as f:
