@@ -114,7 +114,16 @@ Phases, each reported on its own line:
    shards equal to ``add_templates``; the production tier on 4 shards
    equal to per-frame ``match_refine_batch`` bit for bit; ``cli match
    --spatial-shards 4`` equal to ``cli match``; the four examples. Each
-   path's launches; one-card timings and peak memory (``sharded_phase``).
+   path's launches; one-card timings and peak memory (``sharded_phase``);
+16. the oracle: the port on the card against its copy of the scalar NumPy
+   oracle (``shape_based_matching_tpu_torch/oracle/reference.py``), apart
+   from the JAX goldens: ``Detector.match`` against ``match_class`` on
+   the flagship, wide1000x128, masked360, e2e360_16ori and color1000
+   (distinct (template, x, y, float32 bits)), each path's linear
+   memories and every template's coarse scores and live counts against
+   the oracle's (chain.cu on the dense bank, coarse.cu's wide route on
+   1000 x 142 and 8 x 3073 slots), the flagship's spread planes, and
+   ``tests/test_fuzz_parity.py``'s randomized scenes (``oracle_phase``).
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -2758,6 +2767,252 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
     return records, report
 
 
+# phase 16: the port against its copy of the scalar oracle
+# (shape_based_matching_tpu_torch/oracle/reference.py): golden name of each
+# path that Detector.match runs against oracle.match_class, and of each
+# bank held to oracle.similarity at the score level alone
+ORACLE_MATCH_PATHS = ("e2e1000", "wide1000x128", "masked360",
+                      "e2e360_16ori", "color1000")
+ORACLE_SCORE_PATHS = ("e2e10000", "wide1000x256", "wide8191")
+FUZZ_LOW_THRESHOLD = 20.0  # tests/test_torch_fuzz_parity.py's
+
+
+def _launched(launches: dict, names, what: str) -> None:
+    if not all(launches[n] for n in names):
+        raise AssertionError(f"{what}: a kernel was not launched: "
+                             f"{launches}")
+
+
+def _oracle_line(what: str, n: int, unit: str, oracle_s: float,
+                 card_s: float, extra: str = "") -> dict:
+    print(f"oracle {what}: equal, {n} {unit}, host oracle {oracle_s:.2f} s, "
+          f"card {card_s:.3f} s{extra}")
+    return {"equal": True, unit: n, "oracle_s": oracle_s, "card_s": card_s}
+
+
+def _lm_check(lmflats: tuple, lms: list, what: str) -> int:
+    """The card's flat linear memories of one frame, level by level,
+    against the oracle's [n_ori, T*T, M] (and the zero tail). Returns the
+    bytes compared."""
+    n = 0
+    for l, (flat, lm) in enumerate(zip(lmflats, lms)):
+        host = flat[0].cpu().numpy()
+        want = np.concatenate([lm.reshape(-1),
+                               np.zeros(lm.shape[-1], np.uint8)])
+        if not np.array_equal(host, want):
+            raise AssertionError(f"{what}: level {l} linear memories "
+                                 f"differ from the oracle's")
+        n += host.size
+    return n
+
+
+def _score_check(det, cid: str, lmflat, lm, size, threshold: float,
+                 what: str) -> dict:
+    """Every template's coarse scores on the card (chain.cu when the class
+    has a chain plan at this size, else coarse.cu) against
+    oracle.similarity over the cells the oracle scores (j < positions),
+    and each live count against the oracle's cells at or above rmin."""
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import coarse_scores
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold)
+    from shape_based_matching_tpu_torch.oracle import reference as oracle
+    from tests.torch_fuzz import oracle_tps
+
+    bank = det._get_banks(cid)[-1]
+    T = det.T_at_level[-1]
+    W, H = size[0] // T, size[1] // T
+    M = W * H
+    pos = _positions(bank, T, W, H)
+    thr = torch.full((), threshold, dtype=torch.float32, device=DEVICE)
+    rmin, _ = _rmin_for_threshold(bank.nfeat, thr)
+    plan = det._get_chain(cid, size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if plan is not None:
+        S, cnt = chain_scores(lmflat, plan, pos, rmin)
+    else:
+        S, cnt = coarse_scores(lmflat, _flat_offsets(
+            bank, T, W, M, size, det.num_orientations), pos, rmin, M)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    S, cnt = S[0].cpu().numpy(), cnt[0].cpu().numpy()
+    pos, rmin = pos.cpu().numpy(), rmin.cpu().numpy()
+    t0 = time.perf_counter()
+    cells = 0
+    for k, tp in enumerate(oracle_tps(det, cid)):
+        t = tp[-1]
+        p = min(int(pos[k]), M)
+        if p <= 0:  # larger than the frame: no cell (the oracle's slice
+            if cnt[k]:  # arithmetic takes no such template)
+                raise AssertionError(f"{what}: template {k} has no "
+                                     f"position but counts {cnt[k]}")
+            continue
+        want = oracle.similarity(lm, t["features"],
+                                 (t["width"], t["height"]), size,
+                                 T).reshape(-1).astype(np.int64)
+        if not np.array_equal(S[k, :p], want[:p]) or \
+                int(cnt[k]) != int((want[:p] >= rmin[k]).sum()):
+            raise AssertionError(f"{what}: template {k}'s scores or live "
+                                 f"count differ from oracle.similarity")
+        cells += p
+    route = "chain.cu" if plan is not None else "coarse.cu"
+    return _oracle_line(f"{what} scores ({route}, K={S.shape[0]}, "
+                        f"N={bank.fx.shape[1]})", cells, "cells",
+                        time.perf_counter() - t0, card_s)
+
+
+def oracle_phase(card: str) -> dict:
+    """Phase 16: the port on the card against its copy of the scalar
+    oracle (``oracle/reference.py``), independent of the JAX goldens.
+
+    1. ``Detector.match`` against ``oracle.match_class`` as distinct
+       (template, x, y, float32 bits) sets on the flagship (rows 1, 3, 8;
+       its re-run at cap 1024 takes the map route, rows 4 and 9),
+       wide1000x128, masked360, e2e360_16ori and color1000; on each path
+       the card's linear memories at both levels and every template's
+       coarse scores and live counts against the oracle's, and on the
+       flagship the frontend's spread planes at both levels.
+    2. At the score level alone: the dense 10,000-template bank's
+       chain.cu scores and counts on the flagship frame (rows 6-7), and
+       coarse.cu's wide route on 1000 x 142 and 8 x 3073 coarse slots
+       (row 5), against oracle.similarity for every template.
+    3. ``tests/test_fuzz_parity.py``'s eight randomized scenes and its
+       merged three-class case on the card against ``match_class``.
+    Any inequality raises. Prints one line per check: equal, the matches
+    or cells compared, the host oracle's seconds and the card's (host
+    clock around the synchronized card work)."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import _batch_pyramid
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import quant_spread
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import map_refine
+    from shape_based_matching_tpu_torch.ops.cuda.refine import refine_windows
+    from shape_based_matching_tpu_torch.ops.response import to_i32
+    from shape_based_matching_tpu_torch.oracle import reference as oracle
+    from tests import torch_fuzz
+
+    dev = torch.device(DEVICE)
+    kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
+               map_refine)
+    out = {}
+    t_phase = time.perf_counter()
+    for name in ORACLE_MATCH_PATHS + ORACLE_SCORE_PATHS:
+        kwargs, cid, pyramids, frame, mask, threshold, _ = _mode_path(name)
+        det = Detector(**kwargs, device=DEVICE)
+        det.class_templates[cid] = pyramids
+        n_ori, T = det.num_orientations, det.T_at_level
+        frames, masks = _upload(frame, mask, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lmflats = _batch_pyramid(frames, T, det.pyramid_levels,
+                                 det.weak_threshold, n_ori, masks)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lms, sizes = oracle.build_lm_pyramid(frame, det.weak_threshold, T,
+                                             n_ori=n_ori, mask=mask)
+        pyr_s = time.perf_counter() - t0
+        out[f"{name}_lm"] = _oracle_line(
+            f"{name} linear memories (frontend.cu, both levels)",
+            _lm_check(lmflats, lms, name), "bytes", pyr_s, card_s)
+        out[f"{name}_scores"] = _score_check(det, cid, lmflats[-1], lms[-1],
+                                             sizes[-1], threshold, name)
+        if name == "e2e1000":  # the frontend's spread planes, rows 1-2
+            img, t_sp, card_s = frame, 0.0, 0.0
+            for l, T_l in enumerate(T):
+                if l:
+                    img = oracle.pyr_down_u8(img)
+                t0 = time.perf_counter()
+                want = oracle.spread(oracle.quantized_orientations(
+                    img, det.weak_threshold, n_ori)[1], T_l)
+                t_sp += time.perf_counter() - t0
+                level = _upload(img, None, dev)[0]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = quant_spread(level, det.weak_threshold, T_l, n_ori)
+                torch.cuda.synchronize()
+                card_s += time.perf_counter() - t0
+                if not np.array_equal(
+                        to_i32(got[0]).cpu().numpy().astype(want.dtype),
+                        want):
+                    raise AssertionError(f"{name}: level {l} spread plane "
+                                         f"differs from the oracle's")
+            out["e2e1000_spread"] = _oracle_line(
+                f"{name} spread planes (frontend.cu, 1024^2 T=4, 512^2 T=8)",
+                frame.size + img.size, "pixels", t_sp, card_s)
+        if name not in ORACLE_MATCH_PATHS:
+            continue
+        for fn in kernels:
+            fn.launches = 0
+        det.refine_routes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = det.match(frame, threshold, mask=mask)
+        card_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        t0 = time.perf_counter()
+        want = torch_fuzz.oracle_matches(det, (lms, sizes), threshold)
+        oracle_s = time.perf_counter() - t0
+        got_set = torch_fuzz.port_keys(got)
+        want_set = torch_fuzz.oracle_keys(want)
+        if got_set != want_set:
+            raise AssertionError(
+                f"{name}: Detector.match differs from oracle.match_class: "
+                f"{len(got_set)} vs {len(want_set)} matches, "
+                f"{sorted(set(got_set) ^ set(want_set))[:5]}")
+        _launched(launches, ("quant_spread", "coarse_scores")
+                  + (("coarse_maps", "map_refine") if name == "e2e1000"
+                     else ()), name)
+        if name == "e2e1000" and not det.refine_routes["maps"]:
+            raise AssertionError("e2e1000: the re-run did not take the map "
+                                 "route")
+        out[name] = _oracle_line(
+            f"{name} Detector.match vs match_class", len(got_set),
+            "matches", oracle_s, card_s,
+            f" (oracle list {len(want)}, launches {launches}, refine "
+            f"routes {dict(det.refine_routes)})")
+    for seed, variant in torch_fuzz.FUZZ_CASES + ((77, "merged"),):
+        if variant == "merged":
+            det, scene = torch_fuzz.merged_case(DEVICE)
+            mask, threshold, cids = None, torch_fuzz.MERGED_THRESHOLD, None
+        else:
+            det, scene, mask, threshold = torch_fuzz.fuzz_case(seed, variant,
+                                                               DEVICE)
+            cids = ["fuzz"]
+        t0 = time.perf_counter()
+        pyramid = torch_fuzz.oracle_pyramid(det, scene, mask)
+        pyr_s = time.perf_counter() - t0
+        # the case's threshold, and 20: every list non-empty, re-runs
+        for thr in (threshold, FUZZ_LOW_THRESHOLD):
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            got = torch_fuzz.port_keys(det.match(scene, thr, cids,
+                                                 mask=mask))
+            card_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            t0 = time.perf_counter()
+            want = torch_fuzz.oracle_keys(torch_fuzz.oracle_matches(
+                det, pyramid, thr, cids))
+            oracle_s = time.perf_counter() - t0 + pyr_s
+            if got != want:
+                raise AssertionError(f"fuzz {seed} {variant} thr {thr}: "
+                                     f"Detector.match differs from "
+                                     f"oracle.match_class")
+            _launched(launches, ("quant_spread", "coarse_scores"),
+                      f"fuzz {seed} {variant}")
+            out[f"fuzz_{seed}_{variant}_{thr:g}"] = _oracle_line(
+                f"fuzz {seed} {variant} {scene.shape[:2]} thr {thr}",
+                len(got), "matches", oracle_s, card_s,
+                f" (launches {launches})")
+            pyr_s = 0.0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"oracle phase: every check equal on {card}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3035,6 +3290,12 @@ def main() -> None:
     t8 = time.perf_counter()
     report["phase_seconds_15"] = t8 - t7
     print(f"seconds: sharded paths {t8 - t7:.1f}")
+
+    # 16. the oracle
+    report["oracle"] = oracle_phase(card)
+    t9 = time.perf_counter()
+    report["phase_seconds_16"] = t9 - t8
+    print(f"seconds: oracle {t9 - t8:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

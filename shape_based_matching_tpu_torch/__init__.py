@@ -26,7 +26,12 @@ Model directories (``det.write_classes``, ``det.save_settings``,
 ``get_instance``) are the reference's OpenCV YAML; the command line is
 ``python -m shape_based_matching_tpu_torch --device cuda|cpu
 train|match|train-db|match-db|preprocess|demo|info``.
+
+The scalar NumPy oracle that the port is held to, on the CPU and on the
+card, is ``oracle/reference.py`` (a copy of the JAX package's).
 """
+
+__version__ = "0.1.0"
 
 from .models.detector import Detector, Match, get_instance, reset_instance
 from .models.icp import (IcpResult, MatchIcpHandle, match_icp,
@@ -44,6 +49,7 @@ from .parallel.spatial import (make_spatial_mesh, match_huge_frame,
 from .utils.nms import nms_boxes
 
 __all__ = [
+    "__version__",
     "Detector",
     "Match",
     "Feature",

@@ -69,8 +69,8 @@ from ..ops.gradients import (quantized_orientations,
                              quantized_orientations_color,
                              quantized_orientations_gray)
 from ..ops.response import build_lm_from_spread, to_i32
-from ..ops.similarity import (LevelBank, coarse_extract, refine_by_maps,
-                              refine_candidates)
+from ..ops.similarity import (LevelBank, coarse_extract, coarse_route,
+                              refine_by_maps, refine_candidates)
 from ..utils.convert import level_max_dims, pyramids_to_banks
 from ..utils.yaml_io import (class_file_path, dump_opencv_yaml,
                              load_opencv_yaml)
@@ -617,6 +617,18 @@ class Detector:
             self._chain_plans[key] = (None if plan is None
                                       else plan_to_device(plan, self.device))
         return self._chain_plans[key]
+
+    def coarse_route(self, class_id: str, size_hw) -> str:
+        """Which coarse kernel route a match of `class_id` at this frame
+        size engages -- 'chain' | 'packed4' | 'wide'
+        (``ops/similarity.coarse_route``). A host-side probe: it builds
+        the class's banks and chain plan as a match would, and caches
+        them."""
+        sizes = self._level_sizes(size_hw)
+        chain = self._get_chain(class_id, sizes[-1])
+        return coarse_route(self._get_banks(class_id)[-1],
+                            self.T_at_level[-1], sizes[-1],
+                            self.num_orientations, chain is not None)
 
     def _shard_cached(self, group, key: tuple, make):
         """What a sharded path keeps of a bank group for one shard (its

@@ -184,6 +184,34 @@ def extract_candidates_counted(S: torch.Tensor, cnt: torch.Tensor,
     return k.to(torch.int32), x, y, sc, got, n_above
 
 
+def coarse_route(bank: LevelBank, T: int, size_wh, n_ori: int = 8,
+                 chain: bool = False) -> str:
+    """Which TPU kernel row ``coarse_extract`` serves for this (bank,
+    frame), under the JAX package's labels (its ``coarse_route``), so that
+    a recorded time can be tagged with the kernel that made it:
+
+    * ``'chain'``: `chain` is set, the class has a chain plan at this
+      frame size -- ``chain.cu`` (rows 6-7), one block per segment of at
+      most ``SEG_TEMPLATES`` templates (``ops/cuda/chain.segment_plan``).
+    * ``'packed4'``: at most 63 slots (``N * 4 <= 255``) -- ``coarse.cu``
+      (row 3) in one packed-lane run per 4 cells, and one slot group
+      (``coarse_split`` gives G = 1 below 128 slots), the count fused.
+    * ``'wide'``: 64 slots or more -- ``coarse.cu`` (row 5), its lanes
+      widened every 63 slots; ``coarse_split`` spreads the slots over
+      G > 1 groups of blocks when the grid would not fill the card, and
+      the count then runs as a second pass over S.
+
+    The port never returns the TPU-only ``'cells'`` and ``'packed2'``.
+    Where the JAX package returns ``'cells'`` (past its 36 MiB VMEM gate,
+    or past 16383 slots), the port returns what it runs there: coarse.cu
+    has neither limit. So `T`, `size_wh` and `n_ori` change no label here;
+    they keep the JAX package's signature."""
+    del T, size_wh, n_ori
+    if chain:
+        return "chain"
+    return "packed4" if int(bank.fx.shape[1]) * 4 <= 255 else "wide"
+
+
 def coarse_extract(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
                    threshold: torch.Tensor, cand_cap: int,
                    chain: ChainPlan | None = None, n_ori: int = 8):

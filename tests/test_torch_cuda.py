@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card.
 
+The randomized scenes of ``tests/test_fuzz_parity.py`` and the frontend at
+T=2 are held to the port's copy of the scalar oracle instead.
+
 Marked ``cuda``: these need an NVIDIA GPU and skip elsewhere. They import
 neither JAX nor the JAX package, so they run on a machine without JAX:
 
@@ -33,7 +36,12 @@ from shape_based_matching_tpu_torch.ops.similarity import (
     LevelBank, _flat_offsets, _positions, _rmin_for_threshold, gather_bank,
     pack_level_bank, refine_from_maps)
 from shape_based_matching_tpu_torch.utils import synthetic
+from shape_based_matching_tpu_torch.oracle import reference as oracle
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
+
+from .torch_fuzz import (FUZZ_CASES, MERGED_THRESHOLD, fuzz_case, merged_case,
+                         oracle_keys, oracle_matches, oracle_pyramid,
+                         port_keys)
 
 pytestmark = pytest.mark.cuda
 
@@ -1073,3 +1081,58 @@ def test_refine_step_on_card_equals_match_refine_batch(dev):
     assert int(out["cpu"][6].sum()) > 0
     for i in (6, 7, 8, 9):  # valid, template id, x, y
         assert torch.equal(out[dev][i].cpu(), out["cpu"][i])
+
+
+@pytest.mark.parametrize("seed,variant", FUZZ_CASES)
+def test_fuzz_match_on_card_equals_oracle(dev, seed, variant):
+    """tests/test_fuzz_parity.py's randomized scenes on the card against
+    the port's copy of the scalar oracle (matchClass): distinct (template,
+    x, y, float32 bits), at the case's threshold and at 20 (many matches,
+    overflow re-runs), through the frontend, coarse and window kernels."""
+    det, scene, mask, thr = fuzz_case(seed, variant, dev)
+    pyramid = oracle_pyramid(det, scene, mask)
+    kernels = (quant_spread, coarse_scores, refine_windows)
+    for fn in kernels:
+        fn.launches = 0
+    for t in (thr, 20.0):
+        got = port_keys(det.match(scene, t, ["fuzz"], mask=mask))
+        want = oracle_keys(oracle_matches(det, pyramid, t, ["fuzz"]))
+        assert got == want, (seed, variant, t)
+    assert all(fn.launches for fn in kernels)
+
+
+def test_fuzz_merged_on_card_equals_oracle(dev):
+    det, scene = merged_case(dev)
+    got = port_keys(det.match(scene, MERGED_THRESHOLD))
+    want = oracle_keys(oracle_matches(det, oracle_pyramid(det, scene),
+                                      MERGED_THRESHOLD))
+    assert got == want and len({k[0] for k in got}) >= 2
+
+
+@pytest.mark.parametrize("mode", ["gray8", "color8", "gray16",
+                                  "masked_gray8"])
+def test_frontend_spread_t2_equals_oracle(dev, mode):
+    """frontend.cu at T=2 (the finest level of a three-level pyramid)
+    against oracle.spread(quantized_orientations(...)), the quantized
+    code masked as build_lm_pyramid masks it."""
+    color, n_ori = mode == "color8", 16 if mode == "gray16" else 8
+    img = synthetic.synthetic_scene(
+        192, 256, synthetic.synthetic_shape_image(96, 3), n_instances=2,
+        seed=4)
+    if color:
+        img = np.stack([img, np.roll(img, 1, axis=1), 255 - img], axis=-1)
+    mask = None
+    if mode == "masked_gray8":
+        mask = ((np.random.RandomState(5).rand(192, 256) > 0.25) * 255
+                ).astype(np.uint8)
+    frames = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(img, -1, 0) if color else img))[None].to(dev)
+    masks = None if mask is None else torch.from_numpy(mask)[None].to(dev)
+    got = quant_spread(frames, 30.0, 2, n_ori, masks)
+    torch.cuda.synchronize()
+    _, quant, _ = oracle.quantized_orientations(img, 30.0, n_ori)
+    if mask is not None:
+        quant = np.where(mask > 0, quant, 0).astype(quant.dtype)
+    want = oracle.spread(quant, 2)
+    np.testing.assert_array_equal(
+        to_i32(got[0]).cpu().numpy().astype(want.dtype), want)

@@ -1,10 +1,12 @@
 """Boundaries of the PyTorch port: it never imports JAX (training,
-persistence, the CLI, the utilities, the sharded paths and the examples
-included, which need neither
+persistence, the CLI, the utilities, the sharded paths, the examples and
+the oracle's copy included, which need neither
 PyYAML nor an image library either), its kernel wrappers run the plain twins (and count no launch)
 only for CPU tensors, it builds kernels only with nvcc, and a failed
-build of its host helpers raises."""
+build of its host helpers raises. The oracle's copy is the JAX package's
+file but for its docstring."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -72,6 +74,10 @@ sharded = mesh.match_images_sharded(
     det, img[None], 85.0, mesh=mesh.make_mesh(2, devices=["cpu"]),
     class_id="t")
 assert sharded[0] == det.match(img, 85.0, ["t"])
+# the oracle's copy is NumPy only, and the package has its version
+import shape_based_matching_tpu_torch as port
+from shape_based_matching_tpu_torch.oracle import reference
+assert port.__version__ == "0.1.0" and "__version__" in port.__all__
 for name in ("jax", "yaml", "PIL", "cv2"):
     assert name not in sys.modules, f"the port imported {name}"
 print(len(matches))
@@ -85,6 +91,28 @@ def test_port_imports_no_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert int(proc.stdout.strip()) > 0
+
+
+def _body(path: str) -> str:
+    """A module's syntax tree without its docstring, as text."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+def test_oracle_copy_is_the_jax_oracle():
+    """The port's oracle is a copy: its syntax tree equals the JAX
+    package's ``oracle/reference.py`` apart from the module docstring,
+    and its package's ``__init__.py`` is empty as the JAX one is."""
+    jax_dir = os.path.join(ROOT, "shape_based_matching_tpu", "oracle")
+    port_dir = os.path.join(ROOT, "shape_based_matching_tpu_torch",
+                            "oracle")
+    assert _body(os.path.join(port_dir, "reference.py")) == _body(
+        os.path.join(jax_dir, "reference.py"))
+    for d in (jax_dir, port_dir):
+        assert os.path.getsize(os.path.join(d, "__init__.py")) == 0
 
 
 def test_cpu_tensors_launch_no_kernel():
