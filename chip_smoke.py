@@ -16,9 +16,9 @@ Phases, each reported on its own line:
    them);
 4. the flagship path: ``Detector(device="cuda")`` matches the flagship
    frame (B=1) and a batch of 8 frames; the launch counters of its
-   kernels (level maps and map refine included) must rise, the B=1 list
-   must equal the committed JAX golden, and each frame of the batch must
-   equal its own B=1 match;
+   kernels (level maps, map refine and extraction included) must rise,
+   the B=1 list must equal the committed JAX golden, and each frame of
+   the batch must equal its own B=1 match;
 5. warm timings from CUDA events: each kernel against its twin (the
    frontend at both levels, B=1 and B=8, held bitwise at B=8 too), the
    window route against the map route at the re-run's cap, and the
@@ -123,7 +123,20 @@ Phases, each reported on its own line:
    memories and every template's coarse scores and live counts against
    the oracle's (chain.cu on the dense bank, coarse.cu's wide route on
    1000 x 142 and 8 x 3073 slots), the flagship's spread planes, and
-   ``tests/test_fuzz_parity.py``'s randomized scenes (``oracle_phase``).
+   ``tests/test_fuzz_parity.py``'s randomized scenes (``oracle_phase``);
+17. the overflow re-run's memory: ``csrc/extract.cu`` against its twin
+   on every output and slot (the flagship's step and re-run, the quirk
+   cells, B=8 overflowing frames, the dense bank's chain rows, the
+   wide1000x256 bank's row-5 rows); then ``Detector.match`` with
+   rot10000x63 at the default cap on phase 15's 4096^2 frame at
+   thresholds 85 and 60 and on the flagship frame at 60 (the last two
+   with more distinct candidate templates than one slab; the 4096^2
+   frame at 60 past the 65,536 bucket), each re-run through the map
+   route's slabs: extract.cu against its twin on the run's S at every
+   cap it uses (timed at 65,536 on the 4096^2 frame at 85), its
+   kernels' launches, its list equal to the one at a cap that holds
+   every candidate, its peak device memory at most 8 GB, and ms and peak
+   GB of both runs (``overflow_phase``).
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -781,6 +794,8 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        extract_counted)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
@@ -846,7 +861,7 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
 
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, chain_scores)
+               map_refine, extract_counted, chain_scores)
     for fn in kernels:
         fn.launches = 0
     det.refine_routes.clear()
@@ -856,7 +871,8 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     routes = dict(det.refine_routes)
     print(f"{name}: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
-    need = ["quant_spread", "coarse_scores", "refine_windows"]
+    need = ["quant_spread", "coarse_scores", "refine_windows",
+            "extract_counted"]
     if routes.get("maps"):
         need += ["coarse_maps", "map_refine"]
     if not all(launches[n] for n in need) or launches["chain_scores"]:
@@ -2339,9 +2355,9 @@ def _peak_gb(fn) -> float:
 
 def _cap_holding(n: int) -> int:
     """The smallest multiple of 1024 that holds n candidates: a cap at
-    which no frame or tile overflows, without the next bucket's memory
-    (the dense frame's 16,460 candidates would take the 65,536 bucket's
-    [65536, 65536] int32 gathers)."""
+    which no frame or tile overflows, so the sharded and whole-frame runs
+    compare with no re-run (phase 17 runs the dense frame's re-run at the
+    65,536 bucket itself)."""
     return -(-max(n, 1) // 1024) * 1024
 
 
@@ -2443,8 +2459,8 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
        cap that holds every tile's candidates (no
        tile may overflow): equal to the whole frame's ``Detector.match``
        (rot1000x63) or ``match_batch``'s first step at a cap that holds
-       every candidate (rot10000x63: ``match``'s re-run would take the
-       map route over up to 10,000 level-0 maps of 1024^2 cells, 42 GB).
+       every candidate (rot10000x63: ``match``'s re-run at the 65,536
+       bucket is phase 17's).
        Caps are the smallest multiple of 1024 that holds the candidates
        (``_cap_holding``). The
        tile's kernels against their twins (``_tile_kernels``). Timed:
@@ -3013,6 +3029,275 @@ def oracle_phase(card: str) -> dict:
     return out
 
 
+# phase 17: the single-device overflow re-run at the 65,536 bucket, and
+# extract.cu against its twin. EXTRACT_CHECKS are shapes off the re-runs'
+# path: (label, class snapshot or mode path, frames, threshold, cap);
+# "flagship" is the e2e1000 frame, "batch" its 8 seeds
+EXTRACT_CHECKS = (
+    ("flagship step", "rot1000x63", "flagship", THRESHOLD, 256),
+    ("flagship re-run", "rot1000x63", "flagship", THRESHOLD, 1024),
+    ("quirk (threshold -5)", "rot1000x63", "flagship", -5.0, 4096),
+    (f"flagship B={BATCH}", "rot1000x63", "batch", THRESHOLD, 256),
+    ("dense 1024^2 (chain rows)", "rot10000x63", "flagship", THRESHOLD,
+     4096),
+    ("wide1000x256 (row-5 rows)", "wide1000x256", None, None, 256),
+)
+MAX_RERUN_GB = 8.0  # an overflow re-run's peak device memory, at most
+# the overflow re-runs of Detector.match with rot10000x63: (label, frame,
+# threshold, held to phase 15's tiles, more distinct candidate templates
+# than one slab). The 4096^2 frame has 16,460 candidates over 661
+# templates at 85 and 88,074 over 3,752 at 60 (past the 65,536 bucket:
+# cap = n_above); the flagship frame 19,008 over 2,755 at 60 (chain rows)
+OVERFLOW_RUNS = (("4096^2 rot10000x63", "huge", THRESHOLD, True, False),
+                 ("4096^2 rot10000x63 at 60", "huge", 60.0, False, True),
+                 ("1024^2 rot10000x63 at 60", "flagship", 60.0, False, True))
+
+
+def _extract_err(got, want) -> float:
+    """max_abs_err of extract_counted's six outputs against the twin's:
+    the integers and n_above exactly, the score bit for bit (NaN where
+    the twin's is NaN)."""
+    return max(_refine_err(got[:5], want[:5]),
+               _max_abs_err([(got[5], want[5])]))
+
+
+def _extract_work(args: tuple, out: tuple):
+    """extract.cu: each template's S row up to its last taken live cell
+    (from the slots' ranks: a slot below the template's live count is a
+    live cell), the counts and the three [K] inputs read once, 17 bytes a
+    slot and n_above written once; a compare and a ballot per walked cell
+    and about 20 operations a slot."""
+    from shape_based_matching_tpu_torch.ops.cuda.extract import _prefix
+
+    S, cnt, pos, rmin, _, T, W, C = args
+    B, K, M = S.shape
+    k, x, y, _, _, _ = out
+    bcnt, incl = _prefix(cnt, pos, rmin, M)
+    excl = incl - bcnt
+    kk = k.long()
+    r = torch.arange(C, device=S.device)[None] - excl.gather(1, kk)
+    live = r < cnt.gather(1, kk)
+    off = T // 2 + (T % 2 - 1)
+    jj = torch.div(y - off, T, rounding_mode="floor") * W \
+        + torch.div(x - off, T, rounding_mode="floor")
+    row = (torch.arange(B, device=S.device)[:, None] * K + kk)[live]
+    walked = torch.zeros(B * K, dtype=torch.int64, device=S.device) \
+        .scatter_reduce(0, row, (jj[live] + 1).long(), "amax")
+    cells = int(walked.sum())
+    return (cells * 4 + B * K * 4 + K * 12 + B * C * 17 + B * 4,
+            cells * 2 + B * C * 20)
+
+
+def overflow_phase(trained: dict, card: str,
+                   tiles_matches: int | None) -> tuple[list, dict]:
+    """Phase 17: the overflow re-run's memory (ROADMAP C.1).
+
+    1. extract.cu against its twin, every output of every slot, at
+       ``EXTRACT_CHECKS``' shapes: the flagship's first step (cap 256)
+       and its re-run (cap 1024), the quirk cells (threshold -5: at 0
+       rmin is 1 and no cell is a quirk cell), B=8 frames that overflow,
+       the dense bank's chain rows at 1024^2 (cap 4096) and the
+       wide1000x256 bank's row-5 rows.
+    2. ``Detector.match`` with rot10000x63 at the default cap on
+       ``OVERFLOW_RUNS``: phase 15's 4096^2 frame at threshold 85 and at
+       60, and the flagship frame at 60. Each overflows 256 and re-runs
+       at the 65,536 bucket (at 4096^2 and 60, past it: cap = n_above)
+       through the map route, its level maps built in slabs of at most
+       ``_MAP_SLAB`` templates. extract.cu is first held to its twin on
+       the run's own S at every cap the run uses: the first step's 256,
+       the re-run's, and the cap that holds every candidate. The
+       kernels' counts are zeroed just before the match and read just
+       after (one map build and one map refine a slab); the list must
+       equal the one at ``_cap_holding(n_above)`` with no re-run (and,
+       at 4096^2 and 85, phase 15's 4 tiles' count), and the re-run's
+       peak device memory must stay under ``MAX_RERUN_GB``. Peak GB and
+       ms of both runs, the re-run cap, n_distinct, D, the slabs and the
+       planner's decision are printed. extract.cu's record is taken on
+       the 4096^2 frame at 85 at its re-run cap of 65,536."""
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.models.detector import _CAND_BUCKETS
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        _prefix, extract_counted, extract_counted_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import quant_spread
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import map_refine
+    from shape_based_matching_tpu_torch.ops.cuda.refine import refine_windows
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _D_BUCKETS, _MAP_SLAB, _flat_offsets, _positions,
+        _rmin_for_threshold, distinct_templates)
+
+    golden = json.load(open(GOLDEN))
+    cfg = golden["config"]
+    scene = _scene(cfg)
+    frames = {"flagship": scene[None], "huge": _huge_frame()[None],
+              "batch": np.stack([_scene({**cfg, "scene_seed":
+                                         cfg["scene_seed"] + i})
+                                 for i in range(BATCH)])}
+
+    def detector(name: str):
+        """(Detector, class id, frames, threshold) of a snapshot trained
+        by phase 8, or of a phase-7 mode path."""
+        if name in trained:
+            det = Detector(num_features=63, T=T_LEVELS, device=DEVICE)
+            det.class_templates["bench"] = \
+                trained[name].class_templates["bench"]
+            return det, "bench", None, None
+        kwargs, cid, pyramids, frame, _, thr, _ = _mode_path(name)
+        det = Detector(**kwargs, device=DEVICE)
+        det.class_templates[cid] = pyramids
+        return det, cid, frame[None], thr
+
+    def coarse_args(det, cid: str, batch: np.ndarray, thr: float):
+        """extract_counted's arguments but the cap, at the coarse level of
+        `batch` (chain.cu where the planner engages, else coarse.cu), the
+        largest n_above of its frames and whether the chain engaged."""
+        lms, sizes, thr_t, _ = det._prepare(batch, None, thr, [cid])
+        bank = det._get_banks(cid)[-1]
+        T1, (w1, h1) = det.T_at_level[-1], sizes[-1]
+        W1, H1 = w1 // T1, h1 // T1
+        pos = _positions(bank, T1, W1, H1)
+        rmin, t4n = _rmin_for_threshold(bank.nfeat, thr_t)
+        plan = det._get_chain(cid, sizes[-1])
+        if plan is not None:
+            S, cnt = chain_scores(lms[-1], plan, pos, rmin)
+        else:
+            S, cnt = coarse_scores(lms[-1], _flat_offsets(
+                bank, T1, W1, W1 * H1, sizes[-1], det.num_orientations),
+                pos, rmin, W1 * H1)
+        n_above = int(_prefix(cnt, pos, rmin, W1 * H1)[1][:, -1].max())
+        return (S, cnt, pos, rmin, t4n, T1, W1), n_above, plan is not None
+
+    def check(label: str, args: tuple, chain: bool):
+        """extract.cu against its twin on every output and slot; returns
+        the kernel's outputs."""
+        got = extract_counted(*args)
+        err = _extract_err(got, extract_counted_plain(*args))
+        S = args[0]
+        shape = (f"B={S.shape[0]} K={S.shape[1]} M={S.shape[2]} "
+                 f"C={args[7]} ({'chain' if chain else 'coarse'} rows)")
+        n_above = got[5].tolist()
+        out["checks"][label] = {"shape": shape, "max_abs_err": err,
+                                "n_above": n_above}
+        print(f"extract.cu vs plain [{label}, {shape}]: max_abs_err {err} "
+              f"(k, x, y, score bits, valid of every slot; n_above "
+              f"{n_above})")
+        if err:
+            raise AssertionError(f"extract.cu disagrees with its twin at "
+                                 f"{label}")
+        return got, shape
+
+    dev_records, out = [], {"checks": {}}
+    for label, name, which, thr, cap in EXTRACT_CHECKS:
+        det, cid, own, own_thr = detector(name)
+        args, _, chain = coarse_args(det, cid, frames.get(which, own),
+                                     own_thr if thr is None else thr)
+        check(label, (*args, cap), chain)
+        del args
+
+    # the slice's path: the default cap, re-run at the 65,536 bucket
+    kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
+               coarse_maps, map_refine, extract_counted)
+    det, cid, _, _ = detector("rot10000x63")
+    K = det._get_banks(cid)[0].fx.shape[0]
+    for label, which, thr, tiles, over_slab in OVERFLOW_RUNS:
+        frame = frames[which][0]
+        args, n_above, chain = coarse_args(det, cid, frame[None], thr)
+        re_cap = next((c for c in _CAND_BUCKETS if c >= n_above), n_above)
+        hold_cap = _cap_holding(n_above)
+        for cap in (256, re_cap, hold_cap):
+            got, shape = check(f"{label} cap {cap}", (*args, cap), chain)
+            if cap == re_cap:
+                n_distinct = int(distinct_templates(got[0], got[4], K, K)[2])
+            if label == OVERFLOW_RUNS[0][0] and cap == re_cap:
+                # extract.cu's record: the re-run's shape on the 4096^2
+                # frame at 85
+                rec_args, rec_shape = (*args, cap), shape
+                ms = _time_ms(lambda: extract_counted(*rec_args), 20)
+                plain_ms = _time_ms(lambda: extract_counted_plain(*rec_args),
+                                    2)
+                work = _extract_work(rec_args, got)
+                del rec_args
+            del got
+        del args
+        D = next((d for d in _D_BUCKETS if n_distinct <= d < K), K)
+        slabs = -(-n_distinct // _MAP_SLAB) if D > _MAP_SLAB else 1
+        if over_slab and not (n_distinct > _MAP_SLAB and slabs >= 2):
+            raise AssertionError(f"overflow re-run {label}: {n_distinct} "
+                                 f"distinct templates, {slabs} slab(s): the "
+                                 f"slabs did not engage")
+        for fn in kernels:
+            fn.launches = 0
+        det.refine_routes.clear()
+        got = det.match(frame, thr)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        routes = dict(det.refine_routes)
+        _launched(launches, (
+            "quant_spread", "chain_scores" if chain else "coarse_scores",
+            "refine_windows", "coarse_maps", "map_refine",
+            "extract_counted"), f"overflow re-run {label}")
+        if launches["coarse_maps"] != slabs \
+                or launches["map_refine"] != slabs:
+            raise AssertionError(f"overflow re-run {label}: {slabs} slabs "
+                                 f"expected, launches {launches}")
+
+        def default():
+            return det.match(frame, thr)
+
+        def holding():
+            return det.match_batch(frame[None], thr, [cid],
+                                   cand_cap=hold_cap)[0]
+
+        want = holding()
+        n_tiles = tiles_matches if tiles else None
+        if not got or _keys(got) != _keys(want) or (
+                n_tiles is not None and len(got) != n_tiles):
+            raise AssertionError(f"overflow re-run {label}: the list "
+                                 f"({len(got)}) differs from the one at cap "
+                                 f"{hold_cap} ({len(want)}) or phase 15's "
+                                 f"tiles ({n_tiles})")
+        runs = {"default": {"cap": re_cap, "ms": _host_ms(default, 3),
+                            "peak_gb": _peak_gb(default)},
+                "holding": {"cap": hold_cap, "ms": _host_ms(holding, 3),
+                            "peak_gb": _peak_gb(holding)}}
+        if runs["default"]["peak_gb"] > MAX_RERUN_GB:
+            raise AssertionError(f"overflow re-run {label} peaked at "
+                                 f"{runs['default']['peak_gb']:.2f} GB, "
+                                 f"over {MAX_RERUN_GB} GB")
+        out[label] = {"n_above": n_above, "rerun_cap": re_cap,
+                      "n_distinct": n_distinct, "D": D, "slabs": slabs,
+                      "map_slab": _MAP_SLAB, "chain": chain,
+                      "launches": launches, "routes": routes,
+                      "matches": len(got), "runs": runs}
+        print(f"overflow re-run {label} (threshold {thr:g}): n_above "
+              f"{n_above}, re-run cap {re_cap}, n_distinct {n_distinct}, D "
+              f"{D}, {slabs} slab(s) of at most {_MAP_SLAB}, planner "
+              f"{'engaged' if chain else 'declined'}; the list equals the "
+              f"cap-{hold_cap} list ({len(got)} matches"
+              f"{f'; phase 15 tiles {n_tiles}' if tiles else ''}); "
+              f"launches {launches}; refine routes {routes}")
+        for name, r in runs.items():
+            print(f"time overflow {label} {name} cap {r['cap']}: "
+                  f"{r['ms']:.4f} ms (host clock, mean of 3 warm calls), "
+                  f"peak {r['peak_gb']:.2f} GB (max_memory_allocated) on "
+                  f"{card}")
+        if label == OVERFLOW_RUNS[0][0]:
+            path_launches = launches
+        del got, want
+    err = max(c["max_abs_err"] for c in out["checks"].values())
+    out.update(extract_ms=ms, extract_plain_ms=plain_ms)
+    rec = _record(extract_counted, "extract.cu", "", err, path_launches,
+                  "overflow re-run 4096^2", ms, plain_ms, work, rec_shape)
+    rec["replaces"] = "shape_based_matching_tpu/ops/similarity.py:776"
+    dev_records.append(rec)
+    print(f"time extract_counted [{rec_shape}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}) on {card}")
+    return dev_records, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3024,6 +3309,8 @@ def main() -> None:
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        extract_counted)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
@@ -3128,7 +3415,7 @@ def main() -> None:
                                       n_instances=cfg["n_instances"],
                                       seed=s) for s in seeds])
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, chain_scores)
+               map_refine, extract_counted, chain_scores)
     for fn in kernels:
         fn.launches = 0
     det.refine_routes.clear()
@@ -3296,6 +3583,15 @@ def main() -> None:
     t9 = time.perf_counter()
     report["phase_seconds_16"] = t9 - t8
     print(f"seconds: oracle {t9 - t8:.1f}")
+
+    # 17. the overflow re-run's memory
+    overflow_records, report["overflow"] = overflow_phase(
+        trained, card,
+        report["sharded"]["spatial"]["rot10000x63"]["4_shards"]["matches"])
+    records += overflow_records
+    t10 = time.perf_counter()
+    report["phase_seconds_17"] = t10 - t9
+    print(f"seconds: overflow re-run {t10 - t9:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

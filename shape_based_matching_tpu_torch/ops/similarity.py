@@ -11,15 +11,18 @@
   ``n_above``; with a threshold low enough that a zero score passes, the
   cells past ``positions`` count too, at score 0 (the reference scans a
   zero-initialized similarity Mat, line2Dup.cpp:1190-1216). Static shapes:
-  no host sync inside the step.
+  no host sync inside the step. On the card one kernel walks each
+  template's row once (``ops/cuda/extract``), in no memory beyond its
+  ``[B, cand_cap]`` results.
 * Refinement: the 16x16 local similarity around each doubled candidate
   (kernel 3, ``ops/cuda/refine``), border clamp, first-max argmax and the
   float ``raw*100/(4*nfeat)`` score (line2Dup.cpp:1221-1293); or, for
   many candidates, a window of the full level maps of the distinct
   candidate templates (kernel 4 ``coarse_maps``), then the whole step in
   one launch of kernel 9 (``ops/cuda/map_refine``), exact under the
-  border clamp. The window origin and the score epilogue of both routes
-  live in ``ops/window``.
+  border clamp; past ``_MAP_SLAB`` distinct templates the maps are built
+  and read one slab of templates at a time. The window origin and the
+  score epilogue of both routes live in ``ops/window``.
 
 Semantics and every returned bit follow the JAX package's
 ``ops/similarity.py``.
@@ -34,12 +37,15 @@ import torch
 from .chain_plan import ChainPlan
 from .cuda.chain import chain_scores
 from .cuda.coarse import coarse_maps, coarse_scores
+from .cuda.extract import extract_counted
 from .cuda.map_refine import map_refine
 from .cuda.refine import refine_windows
 from .window import window_origin, window_result
 
 # distinct-template buckets of the map route (a bank of K templates adds K)
 _D_BUCKETS = (16, 64, 256, 1024)
+# the most distinct templates whose level maps the map route holds at once
+_MAP_SLAB = 1024
 
 
 class LevelBank(NamedTuple):
@@ -138,52 +144,6 @@ def coarse_similarity(lmflat: torch.Tensor, bank: LevelBank, T: int,
     return S, positions
 
 
-def extract_candidates_counted(S: torch.Tensor, cnt: torch.Tensor,
-                               positions: torch.Tensor, rmin: torch.Tensor,
-                               t4n: torch.Tensor, T: int, W: int, C: int):
-    """The first C candidates of each frame from the coarse scores and the
-    kernel's per-template live counts.
-
-    S [B, K, M] int32, cnt [B, K] int32 (cells with j < positions and
-    S >= rmin). Returns (k, x, y, score, valid) each [B, C] and n_above
-    [B], the exact candidate count. Slot i of a frame belongs to the
-    template whose inclusive count prefix first exceeds i; its rank r in
-    that template picks the r-th live cell, or, past the live cells, the
-    quirk cell clip(pos, 0, M) + (r - live) at score 0."""
-    B, K, M = S.shape
-    dev = S.device
-    pos = positions
-    quirk = rmin <= 0
-    qcnt = torch.where(quirk, M - pos.clamp(0, M), torch.zeros_like(pos))
-    bcnt = cnt + qcnt[None, :]                                  # [B, K]
-    incl = bcnt.cumsum(dim=1, dtype=torch.int32)
-    n_above = incl[:, -1]
-    slots = torch.arange(C, dtype=torch.int32, device=dev).expand(B, C)
-    k = torch.searchsorted(incl, slots.contiguous(), right=True)
-    got = k < K
-    k = k.clamp(max=K - 1)
-    r = slots - (incl - bcnt).gather(1, k)                      # rank
-    lcnt = cnt.gather(1, k)
-    is_quirk = r >= lcnt
-
-    rows = S[torch.arange(B, device=dev)[:, None], k]           # [B, C, M]
-    j = torch.arange(M, dtype=torch.int32, device=dev)
-    live = (j < pos[k][..., None]) & (rows >= rmin[k][..., None])
-    ranks = live.to(torch.int32).cumsum(dim=2, dtype=torch.int32)
-    j_live = torch.searchsorted(ranks, r[..., None].contiguous(),
-                                right=True)[..., 0].clamp(max=M - 1)
-    raw_live = rows.gather(2, j_live[..., None])[..., 0]
-
-    jq = pos[k].clamp(0, M) + (r - lcnt)
-    jj = torch.where(is_quirk, jq, j_live.to(torch.int32))
-    raw = torch.where(is_quirk, torch.zeros_like(raw_live), raw_live)
-    sc = (raw * 100).to(torch.float32) / t4n[k]
-    offset = T // 2 + (T % 2 - 1)
-    x = torch.remainder(jj, W) * T + offset
-    y = torch.div(jj, W, rounding_mode="floor") * T + offset
-    return k.to(torch.int32), x, y, sc, got, n_above
-
-
 def coarse_route(bank: LevelBank, T: int, size_wh, n_ori: int = 8,
                  chain: bool = False) -> str:
     """Which TPU kernel row ``coarse_extract`` serves for this (bank,
@@ -232,8 +192,7 @@ def coarse_extract(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
         S, cnt = coarse_scores(
             lmflat, _flat_offsets(bank, T, W, M, size_wh, n_ori), positions,
             rmin, M)
-    return extract_candidates_counted(S, cnt, positions, rmin, t4n, T, W,
-                                      cand_cap)
+    return extract_counted(S, cnt, positions, rmin, t4n, T, W, cand_cap)
 
 
 def refine_candidates(lmflat: torch.Tensor, bank: LevelBank, T: int,
@@ -311,14 +270,50 @@ def refine_by_maps(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
     package's detector): the distinct candidate templates, with one host
     read of their count to pick the smallest D of (16, 64, 256, 1024, K)
     that holds them all, so no candidate loses its map; their unmasked
-    level maps (kernel 4); the refine step from them (kernel 9)."""
-    w_img, h_img = size_wh
-    W, M = w_img // T, (w_img // T) * (h_img // T)
+    level maps (kernel 4); the refine step from them (kernel 9).
+
+    Past ``_MAP_SLAB`` distinct templates (D = K) the maps are built one
+    slab of at most ``_MAP_SLAB`` templates at a time, each slab's refine
+    step keeping the candidates whose template lies in it, so the maps
+    take one slab's memory, ``[B, _MAP_SLAB, M]`` int32, not ``[B, K,
+    M]``. The bits are those of the maps of all D templates wherever the
+    map route is exact (a bank that is not pathological, so every window
+    lies inside its template's map): a candidate whose template is in the
+    slab reads the same window, and an invalid candidate reads nothing in
+    any slab, so the first slab supplies it."""
     K = bank.fx.shape[0]
     slots, slot_of_k, n_distinct = distinct_templates(k, valid, K, K)
     n = int(n_distinct)
     D = next((d for d in _D_BUCKETS if n <= d < K), K)
-    sub = gather_bank(bank, slots[:D])
+    if D <= _MAP_SLAB or n == 0:
+        return _refine_slab(lmflat, bank, T, size_wh, k, x, y, valid,
+                            threshold, n_ori, slots[:D], slot_of_k)
+    out = None
+    for s0 in range(0, n, _MAP_SLAB):
+        s1 = min(s0 + _MAP_SLAB, n)
+        in_slab = (slot_of_k >= s0) & (slot_of_k < s1)
+        part = _refine_slab(lmflat, bank, T, size_wh, k, x, y, valid,
+                            threshold, n_ori, slots[s0:s1],
+                            torch.where(in_slab, slot_of_k - s0,
+                                        torch.full_like(slot_of_k, -1)))
+        if out is None:
+            out = part
+            continue
+        take = valid & in_slab[k]
+        out = tuple(torch.where(take, p, o) for p, o in zip(part, out))
+    return out
+
+
+def _refine_slab(lmflat: torch.Tensor, bank: LevelBank, T: int, size_wh,
+                 k: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 valid: torch.Tensor, threshold: torch.Tensor, n_ori: int,
+                 slots: torch.Tensor, slot_of_k: torch.Tensor):
+    """The level maps of the templates `slots` (kernel 4) and the refine
+    step from them (kernel 9); `slot_of_k` gives each template's row in
+    them, -1 for none. The maps are freed on return."""
+    w_img, h_img = size_wh
+    W, M = w_img // T, (w_img // T) * (h_img // T)
+    sub = gather_bank(bank, slots)
     Sfull = coarse_maps(lmflat, _flat_offsets(sub, T, W, M, size_wh, n_ori),
                         M)
     return refine_from_maps(Sfull, slot_of_k, bank, T, size_wh, k, x, y,

@@ -24,6 +24,8 @@ from shape_based_matching_tpu_torch.ops.cuda.chain import (
     chain_scores, chain_scores_plain, plan_to_device, segment_plan)
 from shape_based_matching_tpu_torch.ops.cuda.coarse import (
     coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
+from shape_based_matching_tpu_torch.ops.cuda.extract import (
+    extract_counted, extract_counted_plain)
 from shape_based_matching_tpu_torch.ops.cuda.frontend import (
     phase_deg_kernel, quant_spread, quant_spread_plain)
 from shape_based_matching_tpu_torch.ops.fastmath import phase_deg
@@ -33,12 +35,14 @@ from shape_based_matching_tpu_torch.ops.cuda.refine import (
     refine_windows, refine_windows_plain)
 from shape_based_matching_tpu_torch.ops.response import to_i32
 from shape_based_matching_tpu_torch.ops.similarity import (
-    LevelBank, _flat_offsets, _positions, _rmin_for_threshold, gather_bank,
-    pack_level_bank, refine_from_maps)
+    _MAP_SLAB, LevelBank, _flat_offsets, _positions, _rmin_for_threshold,
+    gather_bank, pack_level_bank, refine_from_maps)
 from shape_based_matching_tpu_torch.utils import synthetic
 from shape_based_matching_tpu_torch.oracle import reference as oracle
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
 
+from .torch_extract_cases import (CHAIN_CASES, EXTRACT_CASES, chain_case,
+                                  chain_rows, extract_case)
 from .torch_fuzz import (FUZZ_CASES, MERGED_THRESHOLD, fuzz_case, merged_case,
                          oracle_keys, oracle_matches, oracle_pyramid,
                          port_keys)
@@ -359,6 +363,101 @@ def test_refine_from_maps_is_one_launch_without_host_reads(dev):
     graph.replay()
     torch.cuda.synchronize()
     _assert_refine_equal(got, want)
+
+
+def _assert_extract_equal(got, want):
+    """Every output of every slot: k, x, y, valid and n_above exactly, the
+    score's bits (NaN where the twin's is NaN)."""
+    assert len(got) == len(want) == 6
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if i == 3:
+            nan = torch.isnan(w)
+            assert torch.equal(torch.isnan(g), nan)
+            assert torch.equal(g[~nan].view(torch.int32),
+                               w[~nan].view(torch.int32))
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", [*EXTRACT_CASES, "unaligned"])
+def test_extract_kernel_equals_plain(dev, name):
+    """extract.cu against its twin on the CPU replay's cases; "unaligned"
+    is the aligned case's rows one cell off a 16-byte address (the
+    kernel's scalar loads where M % 4 == 0)."""
+    S, *rest = (a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in extract_case("aligned" if name == "unaligned"
+                                      else name))
+    if name == "unaligned":
+        flat = torch.empty(S.numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:] = S.reshape(-1)
+        S = flat[1:].view(S.shape)
+        assert S.data_ptr() % 16 and S.is_contiguous()
+    before = extract_counted.launches
+    got = extract_counted(S, *rest)
+    torch.cuda.synchronize()
+    assert extract_counted.launches == before + 1
+    _assert_extract_equal(got, extract_counted_plain(S, *rest))
+    assert got[4].any()
+
+
+@pytest.fixture(scope="module")
+def card_chain_rows(dev):
+    return chain_rows(dev)
+
+
+@pytest.mark.parametrize("threshold,C", CHAIN_CASES)
+def test_extract_kernel_equals_plain_on_chain_rows(card_chain_rows,
+                                                   threshold, C):
+    args = chain_case(card_chain_rows, threshold, C)
+    got = extract_counted(*args)
+    torch.cuda.synchronize()
+    _assert_extract_equal(got, extract_counted_plain(*args))
+    assert got[4].any()
+
+
+def test_overflow_rerun_at_65536_bucket_memory_is_bounded(dev):
+    """ROADMAP C.1, both terms. The flagship frame with the 10,000-template
+    bank at threshold 60 has more than 16,384 coarse candidates, so
+    ``match`` re-runs at the 65,536 bucket, through the map route over
+    more than 1,024 distinct templates. Its peak device memory above what
+    was allocated before the call stays under the chain's S [K, M1] int32,
+    one slab of level maps [_MAP_SLAB, M0] int32, 64 bytes a candidate
+    slot and 64 MiB for the frame's pyramid, the banks' temporaries and
+    the allocator's rounding: (a) the extraction gathers no [C, M1] score
+    rows (1.07 GB an int32 tensor here) and (b) the map route holds no
+    [K, M0] maps (2.6 GB). The list equals the one at a cap that holds
+    every candidate, with no re-run."""
+    det = Detector(num_features=63, T=(4, 8), device=dev)
+    det.class_templates["c"] = synthetic.load_bank_cache(
+        synthetic.bank_cache_path(10000, 63))
+    scene = synthetic.synthetic_scene(
+        1024, 1024, synthetic.synthetic_shape_image(256, 0), n_instances=4,
+        seed=3)
+    thr = 60.0
+    lms, sizes, thr_t, _ = det._prepare(scene[None], None, thr, ["c"])
+    n_above = int(det._step(lms, "c", thr_t, sizes, 256)[5][0])
+    assert 16384 < n_above <= 65536
+    del lms
+    want = det.match_batch(scene[None], thr,
+                           cand_cap=-(-n_above // 1024) * 1024)[0]
+    kernels = (extract_counted, coarse_maps, map_refine)
+    before = [k.launches for k in kernels]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = det.match(scene, thr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    slabs, refines = (k.launches - b for k, b in zip(kernels[1:],
+                                                     before[1:]))
+    assert extract_counted.launches - before[0] == 2  # step and re-run
+    assert slabs >= 2 and refines == slabs
+    K, M1, M0 = 10000, (512 // 8) ** 2, (1024 // 4) ** 2
+    bound = 4 * K * M1 + 4 * _MAP_SLAB * M0 + 64 * 65536 + (64 << 20)
+    assert peak <= bound, f"peak {peak} bytes over the bound {bound}"
+    assert got and [(m.template_id, m.x, m.y, m.similarity) for m in got] \
+        == [(m.template_id, m.x, m.y, m.similarity) for m in want]
 
 
 @pytest.mark.parametrize("n_ori,color,masked", [
