@@ -16,7 +16,8 @@ Phases, each reported on its own line:
    them);
 4. the flagship path: ``Detector(device="cuda")`` matches the flagship
    frame (B=1) and a batch of 8 frames; the launch counters of its
-   kernels (level maps, map refine and extraction included) must rise,
+   kernels (level maps, map refine, the extraction and its prefix
+   included) must rise,
    the B=1 list must equal the committed JAX golden, and each frame of
    the batch must equal its own B=1 match;
 5. warm timings from CUDA events: each kernel against its twin (the
@@ -124,19 +125,24 @@ Phases, each reported on its own line:
    the oracle's (chain.cu on the dense bank, coarse.cu's wide route on
    1000 x 142 and 8 x 3073 slots), the flagship's spread planes, and
    ``tests/test_fuzz_parity.py``'s randomized scenes (``oracle_phase``);
-17. the overflow re-run's memory: ``csrc/extract.cu`` against its twin
-   on every output and slot (the flagship's step and re-run, the quirk
-   cells, B=8 overflowing frames, the dense bank's chain rows, the
-   wide1000x256 bank's row-5 rows); then ``Detector.match`` with
+17. the overflow re-run's memory: ``csrc/extract.cu`` (its prefix kernel
+   and its extraction, one launch each a call) against its twin on every
+   output and slot (the flagship's step and re-run, the quirk cells, B=8
+   overflowing frames, the dense bank's chain rows, the wide1000x256
+   bank's row-5 rows), timed at the flagship's step (B=1 and B=8) and
+   re-run, the chain rows and the 4096^2 re-runs' caps (the whole call,
+   each kernel's device time and the device kernels a call from
+   torch.profiler, the twins, bounds and shares), the device kernels of
+   one ``coarse_extract`` call, and ``torch.nonzero`` on the 4096^2
+   frame's live mask as a yardstick; then ``Detector.match`` with
    rot10000x63 at the default cap on phase 15's 4096^2 frame at
    thresholds 85 and 60 and on the flagship frame at 60 (the last two
    with more distinct candidate templates than one slab; the 4096^2
    frame at 60 past the 65,536 bucket), each re-run through the map
    route's slabs: extract.cu against its twin on the run's S at every
-   cap it uses (timed at 65,536 on the 4096^2 frame at 85), its
-   kernels' launches, its list equal to the one at a cap that holds
-   every candidate, its peak device memory at most 8 GB, and ms and peak
-   GB of both runs (``overflow_phase``).
+   cap it uses, its kernels' launches, its list equal to the one at a
+   cap that holds every candidate, its peak device memory at most 8 GB,
+   and ms and peak GB of both runs (``overflow_phase``).
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -474,6 +480,8 @@ def dense_phase(card: str) -> tuple[list, dict]:
         chain_scores, chain_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_maps_plain, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        count_prefix, extract_counted)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
@@ -567,7 +575,7 @@ def dense_phase(card: str) -> tuple[list, dict]:
 
     # 3. the dense path through the kernels
     kernels = (quant_spread, chain_scores, refine_windows, coarse_maps,
-               map_refine, coarse_scores)
+               map_refine, extract_counted, count_prefix, coarse_scores)
     for fn in kernels:
         fn.launches = 0
     det.refine_routes.clear()
@@ -795,7 +803,7 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.extract import (
-        extract_counted)
+        count_prefix, extract_counted)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
@@ -861,7 +869,7 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
 
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, extract_counted, chain_scores)
+               map_refine, extract_counted, count_prefix, chain_scores)
     for fn in kernels:
         fn.launches = 0
     det.refine_routes.clear()
@@ -872,7 +880,7 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     print(f"{name}: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
     need = ["quant_spread", "coarse_scores", "refine_windows",
-            "extract_counted"]
+            "extract_counted", "count_prefix"]
     if routes.get("maps"):
         need += ["coarse_maps", "map_refine"]
     if not all(launches[n] for n in need) or launches["chain_scores"]:
@@ -2316,22 +2324,6 @@ MESH_SHAPES = ((1, 4), (2, 2), (4, 1))
 PRODUCTION_SEEDS = tuple(range(7, 15))
 
 
-def _huge_frame() -> np.ndarray:
-    """Phase 15's 4096^2 gray frame: synthetic_scene of the flagship
-    template with 16 instances (seed 3), and 3 more pasted across the
-    band edges of 4 shards, centred on rows 1024, 2048 and 3072."""
-    from shape_based_matching_tpu_torch.utils.synthetic import (
-        synthetic_scene, synthetic_shape_image)
-
-    templ = synthetic_shape_image(256, 0)
-    scene = synthetic_scene(HUGE, HUGE, templ, n_instances=16, seed=3)
-    for i, row in enumerate(HUGE_EDGES):
-        y, x = row - 128, 256 + i * (HUGE - 768) // 2
-        scene[y:y + 256, x:x + 256] = np.maximum(
-            scene[y:y + 256, x:x + 256], templ)
-    return scene
-
-
 def _host_ms(fn, iters: int) -> float:
     """Warm mean ms per call on the host clock, each call synchronized
     (the sharded paths end in a download or a synchronize)."""
@@ -2453,8 +2445,8 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
     port's single-device result (which earlier phases hold to the JAX
     goldens), with the launch counters zeroed before and read after each.
 
-    1. Spatial: the 4096^2 frame (``_huge_frame``) on 4 tiles with the
-       default halo, on rot1000x63 and rot10000x63 (the planner's
+    1. Spatial: the 4096^2 frame (``synthetic.huge_frame``) on 4 tiles
+       with the default halo, on rot1000x63 and rot10000x63 (the planner's
        decision at the tile's coarse size recorded), threshold 85, at a
        cap that holds every tile's candidates (no
        tile may overflow): equal to the whole frame's ``Detector.match``
@@ -2504,7 +2496,7 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
     from shape_based_matching_tpu_torch.parallel import spatial as ps
     from shape_based_matching_tpu_torch.utils.imageio import save_image
     from shape_based_matching_tpu_torch.utils.synthetic import (
-        synthetic_shape_image)
+        huge_frame, synthetic_shape_image)
 
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
                coarse_maps, map_refine)
@@ -2535,7 +2527,7 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
         return int(det._step(lms, "bench", thr, sizes, 256)[5].max())
 
     records, report = [], {}
-    frame = _huge_frame()
+    frame = huge_frame(HUGE, HUGE_EDGES)
 
     # 1. spatial
     report["spatial"] = {}
@@ -3029,44 +3021,13 @@ def oracle_phase(card: str) -> dict:
     return out
 
 
-# phase 17: the single-device overflow re-run at the 65,536 bucket, and
-# extract.cu against its twin. EXTRACT_CHECKS are shapes off the re-runs'
-# path: (label, class snapshot or mode path, frames, threshold, cap);
-# "flagship" is the e2e1000 frame, "batch" its 8 seeds
-EXTRACT_CHECKS = (
-    ("flagship step", "rot1000x63", "flagship", THRESHOLD, 256),
-    ("flagship re-run", "rot1000x63", "flagship", THRESHOLD, 1024),
-    ("quirk (threshold -5)", "rot1000x63", "flagship", -5.0, 4096),
-    (f"flagship B={BATCH}", "rot1000x63", "batch", THRESHOLD, 256),
-    ("dense 1024^2 (chain rows)", "rot10000x63", "flagship", THRESHOLD,
-     4096),
-    ("wide1000x256 (row-5 rows)", "wide1000x256", None, None, 256),
-)
-MAX_RERUN_GB = 8.0  # an overflow re-run's peak device memory, at most
-# the overflow re-runs of Detector.match with rot10000x63: (label, frame,
-# threshold, held to phase 15's tiles, more distinct candidate templates
-# than one slab). The 4096^2 frame has 16,460 candidates over 661
-# templates at 85 and 88,074 over 3,752 at 60 (past the 65,536 bucket:
-# cap = n_above); the flagship frame 19,008 over 2,755 at 60 (chain rows)
-OVERFLOW_RUNS = (("4096^2 rot10000x63", "huge", THRESHOLD, True, False),
-                 ("4096^2 rot10000x63 at 60", "huge", 60.0, False, True),
-                 ("1024^2 rot10000x63 at 60", "flagship", 60.0, False, True))
-
-
-def _extract_err(got, want) -> float:
-    """max_abs_err of extract_counted's six outputs against the twin's:
-    the integers and n_above exactly, the score bit for bit (NaN where
-    the twin's is NaN)."""
-    return max(_refine_err(got[:5], want[:5]),
-               _max_abs_err([(got[5], want[5])]))
-
-
-def _extract_work(args: tuple, out: tuple):
-    """extract.cu: each template's S row up to its last taken live cell
+def _extract_work(args: tuple, out: tuple, meta: torch.Tensor):
+    """extract_kernel: each template's S row up to its last taken live cell
     (from the slots' ranks: a slot below the template's live count is a
-    live cell), the counts and the three [K] inputs read once, 17 bytes a
-    slot and n_above written once; a compare and a ballot per walked cell
-    and about 20 operations a slot."""
+    live cell), the listed templates' work records (32 bytes each) and
+    the frames' meta words read once, 17 bytes a slot written once; a
+    compare and a ballot per walked cell and about 20 operations a slot.
+    The counts, the [K] inputs and n_above are the prefix kernel's."""
     from shape_based_matching_tpu_torch.ops.cuda.extract import _prefix
 
     S, cnt, pos, rmin, _, T, W, C = args
@@ -3084,20 +3045,104 @@ def _extract_work(args: tuple, out: tuple):
     walked = torch.zeros(B * K, dtype=torch.int64, device=S.device) \
         .scatter_reduce(0, row, (jj[live] + 1).long(), "amax")
     cells = int(walked.sum())
-    return (cells * 4 + B * K * 4 + K * 12 + B * C * 17 + B * 4,
+    listed = int(meta[:, 0].sum())
+    return (cells * 4 + listed * 32 + B * 8 + B * C * 17,
             cells * 2 + B * C * 20)
 
 
-def overflow_phase(trained: dict, card: str,
-                   tiles_matches: int | None) -> tuple[list, dict]:
-    """Phase 17: the overflow re-run's memory (ROADMAP C.1).
+def _prefix_work(args: tuple, work: torch.Tensor, meta: torch.Tensor):
+    """prefix_kernel: cnt, positions and rmin read once, t4n of the listed
+    templates (each distinct template once); n_above, the 32-byte work
+    records, the meta words and, where rows have more than one segment,
+    L look-back words a listed template written once; about 20
+    operations a template and frame."""
+    from shape_based_matching_tpu_torch.ops.cuda.extract import _levels
+
+    S = args[0]
+    B, K, M = S.shape
+    n = meta[:, 0].tolist()
+    listed = sum(n)
+    distinct = torch.cat([work[b, :nb, 0] for b, nb in enumerate(n)]) \
+        .unique().numel() if listed else 0
+    L = _levels(M)
+    return (B * K * 4 + K * 8 + distinct * 4 + B * 4
+            + listed * (32 + (4 * L if L > 1 else 0)) + B * 8, B * K * 20)
+
+
+def _kernels_a_call(fn) -> tuple[float, dict, dict]:
+    """Device work a call of `fn` queues (kernels, memsets and copies: the
+    host-side CUDA calls that torch.profiler records over CALLS calls,
+    ``utils/profiling.device_work``), and each recorded device kernel's
+    mean device ms and events, by name. The device-side records can miss
+    a window's first kernels, the host-side ones do not. Raises where the
+    profiler records no device kernel."""
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+
+    queued, kern = device_work(fn)
+    if not kern:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    events: dict = {}
+    for name, ms in kern:
+        name = name.split("(", 1)[0] if not name.startswith("(") \
+            else name.split("::", 1)[1].split("(", 1)[0]
+        events.setdefault(name, []).append(ms)
+    return (queued / CALLS, {n: sum(v) / len(v) for n, v in events.items()},
+            {n: len(v) for n, v in events.items()})
+
+
+# phase 17: the single-device overflow re-run at the 65,536 bucket, and
+# extract.cu against its twin. EXTRACT_CHECKS are shapes off the re-runs'
+# path: (label, class snapshot or mode path, frames, threshold, cap);
+# "flagship" is the e2e1000 frame, "batch" its 8 seeds
+EXTRACT_CHECKS = (
+    ("flagship step", "rot1000x63", "flagship", THRESHOLD, 256),
+    ("flagship re-run", "rot1000x63", "flagship", THRESHOLD, 1024),
+    ("quirk (threshold -5)", "rot1000x63", "flagship", -5.0, 4096),
+    (f"flagship B={BATCH}", "rot1000x63", "batch", THRESHOLD, 256),
+    ("dense 1024^2 (chain rows)", "rot10000x63", "flagship", THRESHOLD,
+     4096),
+    ("wide1000x256 (row-5 rows)", "wide1000x256", None, None, 256),
+)
+# the checks at which extract.cu is also timed, and the flagship path's
+# (phase 4's launches) among them
+EXTRACT_TIMED = ("flagship step", f"flagship B={BATCH}", "flagship re-run",
+                 "dense 1024^2 (chain rows)")
+EXTRACT_FLAGSHIP = ("flagship step", f"flagship B={BATCH}",
+                    "flagship re-run")
+MAX_RERUN_GB = 8.0  # an overflow re-run's peak device memory, at most
+# the overflow re-runs of Detector.match with rot10000x63: (label, frame,
+# threshold, held to phase 15's tiles, more distinct candidate templates
+# than one slab). The 4096^2 frame has 16,460 candidates over 661
+# templates at 85 and 88,074 over 3,752 at 60 (past the 65,536 bucket:
+# cap = n_above); the flagship frame 19,008 over 2,755 at 60 (chain rows).
+# extract.cu is timed at the 4096^2 re-runs' caps
+OVERFLOW_RUNS = (("4096^2 rot10000x63", "huge", THRESHOLD, True, False),
+                 ("4096^2 rot10000x63 at 60", "huge", 60.0, False, True),
+                 ("1024^2 rot10000x63 at 60", "flagship", 60.0, False, True))
+OVERFLOW_TIMED = tuple(r[0] for r in OVERFLOW_RUNS[:2])
+
+
+def _extract_err(got, want) -> float:
+    """max_abs_err of extract_counted's six outputs against the twin's:
+    the integers and n_above exactly, the score bit for bit (NaN where
+    the twin's is NaN)."""
+    return max(_refine_err(got[:5], want[:5]),
+               _max_abs_err([(got[5], want[5])]))
+
+
+def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
+                   path_launches: dict | None = None) -> tuple[list, dict]:
+    """Phase 17: the overflow re-run's memory (ROADMAP C.1) and the
+    extraction's two kernels.
 
     1. extract.cu against its twin, every output of every slot, at
        ``EXTRACT_CHECKS``' shapes: the flagship's first step (cap 256)
        and its re-run (cap 1024), the quirk cells (threshold -5: at 0
        rmin is 1 and no cell is a quirk cell), B=8 frames that overflow,
        the dense bank's chain rows at 1024^2 (cap 4096) and the
-       wide1000x256 bank's row-5 rows.
+       wide1000x256 bank's row-5 rows; each call is the prefix kernel and
+       the extraction, one launch each.
     2. ``Detector.match`` with rot10000x63 at the default cap on
        ``OVERFLOW_RUNS``: phase 15's 4096^2 frame at threshold 85 and at
        60, and the flagship frame at 60. Each overflows 256 and re-runs
@@ -3112,26 +3157,38 @@ def overflow_phase(trained: dict, card: str,
        at 4096^2 and 85, phase 15's 4 tiles' count), and the re-run's
        peak device memory must stay under ``MAX_RERUN_GB``. Peak GB and
        ms of both runs, the re-run cap, n_distinct, D, the slabs and the
-       planner's decision are printed. extract.cu's record is taken on
-       the 4096^2 frame at 85 at its re-run cap of 65,536."""
+       planner's decision are printed.
+    3. The extraction's records at ``EXTRACT_TIMED``' shapes and the
+       4096^2 re-runs' caps (65,536 at 85; n_above at 60): the whole
+       ``extract_counted`` call and ``count_prefix`` alone (CUDA events,
+       queued calls), each kernel's device ms and the device kernels a
+       call (torch.profiler), the twins, bounds and shares; the device
+       kernels of one ``coarse_extract`` call on the flagship; and, as a
+       yardstick the port never calls, ``torch.nonzero`` on the 4096^2
+       frame's precomputed [B, K, M] live mask (CUB's stream compaction
+       of the same cells)."""
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import _CAND_BUCKETS
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_scores)
     from shape_based_matching_tpu_torch.ops.cuda.extract import (
-        _prefix, extract_counted, extract_counted_plain)
+        _prefix, count_prefix, count_prefix_plain, extract_counted,
+        extract_counted_plain)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import quant_spread
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import map_refine
     from shape_based_matching_tpu_torch.ops.cuda.refine import refine_windows
     from shape_based_matching_tpu_torch.ops.similarity import (
         _D_BUCKETS, _MAP_SLAB, _flat_offsets, _positions,
-        _rmin_for_threshold, distinct_templates)
+        _rmin_for_threshold, coarse_extract, distinct_templates)
+    from shape_based_matching_tpu_torch.utils.profiling import CALLS
+    from shape_based_matching_tpu_torch.utils.synthetic import huge_frame
 
     golden = json.load(open(GOLDEN))
     cfg = golden["config"]
     scene = _scene(cfg)
-    frames = {"flagship": scene[None], "huge": _huge_frame()[None],
+    frames = {"flagship": scene[None],
+              "huge": huge_frame(HUGE, HUGE_EDGES)[None],
               "batch": np.stack([_scene({**cfg, "scene_seed":
                                          cfg["scene_seed"] + i})
                                  for i in range(BATCH)])}
@@ -3152,7 +3209,8 @@ def overflow_phase(trained: dict, card: str,
     def coarse_args(det, cid: str, batch: np.ndarray, thr: float):
         """extract_counted's arguments but the cap, at the coarse level of
         `batch` (chain.cu where the planner engages, else coarse.cu), the
-        largest n_above of its frames and whether the chain engaged."""
+        largest n_above of its frames, whether the chain engaged, and
+        coarse_extract's arguments but the cap."""
         lms, sizes, thr_t, _ = det._prepare(batch, None, thr, [cid])
         bank = det._get_banks(cid)[-1]
         T1, (w1, h1) = det.T_at_level[-1], sizes[-1]
@@ -3167,12 +3225,17 @@ def overflow_phase(trained: dict, card: str,
                 bank, T1, W1, W1 * H1, sizes[-1], det.num_orientations),
                 pos, rmin, W1 * H1)
         n_above = int(_prefix(cnt, pos, rmin, W1 * H1)[1][:, -1].max())
-        return (S, cnt, pos, rmin, t4n, T1, W1), n_above, plan is not None
+        return ((S, cnt, pos, rmin, t4n, T1, W1), n_above, plan is not None,
+                (lms[-1], bank, T1, sizes[-1], thr_t))
 
     def check(label: str, args: tuple, chain: bool):
-        """extract.cu against its twin on every output and slot; returns
-        the kernel's outputs."""
+        """extract.cu against its twin on every output and slot, the call
+        one launch of each kernel; returns the kernel's outputs."""
+        before = (count_prefix.launches, extract_counted.launches)
         got = extract_counted(*args)
+        torch.cuda.synchronize()
+        calls = (count_prefix.launches - before[0],
+                 extract_counted.launches - before[1])
         err = _extract_err(got, extract_counted_plain(*args))
         S = args[0]
         shape = (f"B={S.shape[0]} K={S.shape[1]} M={S.shape[2]} "
@@ -3182,43 +3245,140 @@ def overflow_phase(trained: dict, card: str,
                                 "n_above": n_above}
         print(f"extract.cu vs plain [{label}, {shape}]: max_abs_err {err} "
               f"(k, x, y, score bits, valid of every slot; n_above "
-              f"{n_above})")
+              f"{n_above}); launches (prefix, extraction) {calls}")
         if err:
             raise AssertionError(f"extract.cu disagrees with its twin at "
                                  f"{label}")
+        if calls != (1, 1 if args[7] else 0):
+            raise AssertionError(f"extract_counted at {label}: launches "
+                                 f"(prefix, extraction) {calls}")
         return got, shape
 
-    dev_records, out = [], {"checks": {}}
+    def timed(label: str, args: tuple, got: tuple, shape: str,
+              launches: dict | None, path: str) -> list:
+        """Records of extract_counted and count_prefix at one shape;
+        `launches` None: the caller fills them in later."""
+        S, cnt, pos, rmin, t4n, _, _, C = args
+        M = S.shape[2]
+        pre = (cnt, pos, rmin, t4n, M, C)
+        n_kern, by_name, events = _kernels_a_call(
+            lambda: extract_counted(*args))
+        if n_kern != 2 or set(events) != {"prefix_kernel", "extract_kernel"}:
+            raise AssertionError(f"extract_counted at {label}: {n_kern} "
+                                 f"device kernels a call, recorded {events}:"
+                                 f" not the prefix and the extraction alone")
+        plain = count_prefix_plain(*pre)
+        got_pre = count_prefix(*pre)
+        work, meta = got_pre[1], got_pre[2]
+        pre_err = max(_max_abs_err([(got_pre[0], plain[0]),
+                                    (got_pre[2], plain[2])]),
+                      max(_max_abs_err([(got_pre[1][b, :n], plain[1][b, :n])])
+                          for b, n in enumerate(plain[2][:, 0].tolist())))
+        if pre_err:
+            raise AssertionError(f"count_prefix disagrees with its twin at "
+                                 f"{label}")
+        rows = []
+        for fn, kname, work, kern, twin, err in (
+                (extract_counted, "extract_kernel",
+                 _extract_work(args, got, meta),
+                 lambda: extract_counted(*args),
+                 lambda: extract_counted_plain(*args), 0),
+                (count_prefix, "prefix_kernel",
+                 _prefix_work(args, work, meta),
+                 lambda: count_prefix(*pre),
+                 lambda: count_prefix_plain(*pre), pre_err)):
+            ms = _time_ms(kern, 20)
+            plain_ms = _time_ms(twin, 2 if fn is extract_counted else 5)
+            rec = _record(fn, "extract.cu", "", err, launches or {
+                fn.__name__: None}, path, ms, plain_ms, work,
+                f"{label}: {shape}")
+            rec["replaces"] = "shape_based_matching_tpu/ops/similarity.py:776"
+            rec["device_ms"] = dev_ms = by_name[kname]
+            rec["device_events"] = events[kname]
+            rec["device_kernels_a_call"] = n_kern
+            rows.append(rec)
+            print(f"time {fn.__name__} [{label}, {shape}]: {ms:.4f} ms a "
+                  f"queued call, device {dev_ms:.5f} ms (mean of "
+                  f"{events[kname]} events), plain {plain_ms:.4f} ms, bound "
+                  f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), share "
+                  f"{rec['bound_ms'] / ms:.3f} of the call, "
+                  f"{rec['bound_ms'] / dev_ms:.3f} of the device time; "
+                  f"{n_kern} device kernels a call on {card}")
+        out["times"][label] = [{k: r[k] for k in (
+            "name", "ms", "device_ms", "device_events", "plain_ms",
+            "bound_ms", "bound_by", "shape")} for r in rows]
+        dev_records.extend(rows)
+        return rows
+
+    dev_records, out = [], {"checks": {}, "times": {}}
     for label, name, which, thr, cap in EXTRACT_CHECKS:
         det, cid, own, own_thr = detector(name)
-        args, _, chain = coarse_args(det, cid, frames.get(which, own),
-                                     own_thr if thr is None else thr)
-        check(label, (*args, cap), chain)
-        del args
+        args, _, chain, ce_args = coarse_args(
+            det, cid, frames.get(which, own), own_thr if thr is None else thr)
+        got, shape = check(label, (*args, cap), chain)
+        if label == "flagship step":
+            # the device kernels of one coarse_extract call
+            n_ce, ce_names, ce_events = _kernels_a_call(
+                lambda: coarse_extract(*ce_args, cap))
+            if not {"prefix_kernel", "extract_kernel"} <= set(ce_events):
+                raise AssertionError(f"coarse_extract: recorded device "
+                                     f"kernels {ce_events}, not the "
+                                     f"extraction's")
+            out["coarse_extract_kernels"] = {"a_call": n_ce,
+                                             "by_name": ce_names,
+                                             "events": ce_events}
+            print(f"coarse_extract [{label}]: {n_ce} device kernels a call "
+                  f"(torch.profiler's host-side records, {CALLS} calls), "
+                  f"the extraction's prefix_kernel and extract_kernel among "
+                  f"them; recorded events, mean device ms: "
+                  + ", ".join(f"{n} {ce_events[n]}, {ms:.4f}" for n, ms
+                              in ce_names.items()))
+        if label in EXTRACT_TIMED:
+            # the launches of the path this shape is on (phases 4 and 6),
+            # or of the check alone where the phase runs by itself
+            on_path = (path_launches or {}).get(label)
+            timed(label, (*args, cap), got, shape, on_path or {
+                "extract_counted": 1, "count_prefix": 1},
+                  ("dense" if "dense" in label else "flagship")
+                  if on_path else f"check {label}")
+        del args, got, ce_args
 
     # the slice's path: the default cap, re-run at the 65,536 bucket
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
-               coarse_maps, map_refine, extract_counted)
+               coarse_maps, map_refine, extract_counted, count_prefix)
     det, cid, _, _ = detector("rot10000x63")
     K = det._get_banks(cid)[0].fx.shape[0]
     for label, which, thr, tiles, over_slab in OVERFLOW_RUNS:
         frame = frames[which][0]
-        args, n_above, chain = coarse_args(det, cid, frame[None], thr)
+        args, n_above, chain, _ = coarse_args(det, cid, frame[None], thr)
         re_cap = next((c for c in _CAND_BUCKETS if c >= n_above), n_above)
         hold_cap = _cap_holding(n_above)
+        rows = []
         for cap in (256, re_cap, hold_cap):
             got, shape = check(f"{label} cap {cap}", (*args, cap), chain)
             if cap == re_cap:
                 n_distinct = int(distinct_templates(got[0], got[4], K, K)[2])
-            if label == OVERFLOW_RUNS[0][0] and cap == re_cap:
-                # extract.cu's record: the re-run's shape on the 4096^2
-                # frame at 85
-                rec_args, rec_shape = (*args, cap), shape
-                ms = _time_ms(lambda: extract_counted(*rec_args), 20)
-                plain_ms = _time_ms(lambda: extract_counted_plain(*rec_args),
-                                    2)
-                work = _extract_work(rec_args, got)
-                del rec_args
+                if label in OVERFLOW_TIMED:
+                    # launches from the match below
+                    rows = timed(f"{label} re-run", (*args, cap), got, shape,
+                                 None, f"overflow re-run {label}")
+                    if label == OVERFLOW_RUNS[0][0]:
+                        # the yardstick: CUB's compaction of the live cells
+                        # (no name holds S past `del args`: the match's
+                        # peak memory below must not count it)
+                        mask = (torch.arange(args[0].shape[2],
+                                             device=args[0].device)
+                                < args[2][:, None]) \
+                            & (args[0] >= args[3][:, None])
+                        nz_ms = _time_ms(lambda: torch.nonzero(mask), 5)
+                        out["nonzero_yardstick"] = {
+                            "ms": nz_ms, "cells": int(mask.numel()),
+                            "live": int(mask.sum())}
+                        print(f"time torch.nonzero yardstick [{shape}, "
+                              f"precomputed [B, K, M] live mask, "
+                              f"{int(mask.sum())} live]: {nz_ms:.4f} ms on "
+                              f"{card} (not called by the port)")
+                        del mask
             del got
         del args
         D = next((d for d in _D_BUCKETS if n_distinct <= d < K), K)
@@ -3237,11 +3397,13 @@ def overflow_phase(trained: dict, card: str,
         _launched(launches, (
             "quant_spread", "chain_scores" if chain else "coarse_scores",
             "refine_windows", "coarse_maps", "map_refine",
-            "extract_counted"), f"overflow re-run {label}")
+            "extract_counted", "count_prefix"), f"overflow re-run {label}")
         if launches["coarse_maps"] != slabs \
                 or launches["map_refine"] != slabs:
             raise AssertionError(f"overflow re-run {label}: {slabs} slabs "
                                  f"expected, launches {launches}")
+        for rec in rows:
+            rec["launches"] = launches[rec["name"]]
 
         def default():
             return det.match(frame, thr)
@@ -3283,18 +3445,10 @@ def overflow_phase(trained: dict, card: str,
                   f"{r['ms']:.4f} ms (host clock, mean of 3 warm calls), "
                   f"peak {r['peak_gb']:.2f} GB (max_memory_allocated) on "
                   f"{card}")
-        if label == OVERFLOW_RUNS[0][0]:
-            path_launches = launches
         del got, want
     err = max(c["max_abs_err"] for c in out["checks"].values())
-    out.update(extract_ms=ms, extract_plain_ms=plain_ms)
-    rec = _record(extract_counted, "extract.cu", "", err, path_launches,
-                  "overflow re-run 4096^2", ms, plain_ms, work, rec_shape)
-    rec["replaces"] = "shape_based_matching_tpu/ops/similarity.py:776"
-    dev_records.append(rec)
-    print(f"time extract_counted [{rec_shape}]: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}) on {card}")
+    for rec in dev_records:  # every check's error, as before
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return dev_records, out
 
 
@@ -3310,7 +3464,7 @@ def main() -> None:
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.extract import (
-        extract_counted)
+        count_prefix, extract_counted)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
@@ -3415,7 +3569,7 @@ def main() -> None:
                                       n_instances=cfg["n_instances"],
                                       seed=s) for s in seeds])
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, extract_counted, chain_scores)
+               map_refine, extract_counted, count_prefix, chain_scores)
     for fn in kernels:
         fn.launches = 0
     det.refine_routes.clear()
@@ -3587,7 +3741,9 @@ def main() -> None:
     # 17. the overflow re-run's memory
     overflow_records, report["overflow"] = overflow_phase(
         trained, card,
-        report["sharded"]["spatial"]["rot10000x63"]["4_shards"]["matches"])
+        report["sharded"]["spatial"]["rot10000x63"]["4_shards"]["matches"],
+        {**{label: report["launches"] for label in EXTRACT_FLAGSHIP},
+         "dense 1024^2 (chain rows)": report["dense"]["launches"]})
     records += overflow_records
     t10 = time.perf_counter()
     report["phase_seconds_17"] = t10 - t9

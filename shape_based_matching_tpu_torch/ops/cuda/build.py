@@ -61,10 +61,14 @@ SIGNATURES = {
     # B, NSEG, K, M, stream
     "sbm_chain_scores": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _P),
-    # S, cnt, excl, incl, pos, rmin, t4n, k_out, x_out, y_out, sc_out,
-    # valid_out, B, K, M, C, T, W, vec, stream
-    "sbm_extract_counted": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P),
+    # cnt, pos, rmin, t4n, n_above, work, meta, status, B, K, M, C, L,
+    # stream
+    "sbm_extract_prefix": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _P),
+    # S, work, meta, status, k_out, x_out, y_out, sc_out, valid_out, B, K,
+    # M, C, T, W, L, vec, stream
+    "sbm_extract_counted": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P),
     # Sfull, D, M, W, slot_of_k, width, height, nfeat, k, x, y, valid,
     # threshold, k_out, x_out, y_out, sim_out, valid_out, T, w_img, h_img,
     # B, C, stream

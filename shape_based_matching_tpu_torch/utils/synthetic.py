@@ -65,6 +65,21 @@ def synthetic_block_noise_image(size: int = 512, block: int = 4,
     return np.where(img, 220, 30).astype(np.uint8)
 
 
+def huge_frame(side: int = 4096,
+               edges: tuple = (1024, 2048, 3072)) -> np.ndarray:
+    """The huge gray frame of the sharded and overflow checks: a
+    ``synthetic_scene`` of the star shape with 16 instances (seed 3), and
+    one more pasted across each of `edges` (the band edges of 4 row
+    shards at 4096^2), centred on that row."""
+    templ = synthetic_shape_image(256, 0)
+    scene = synthetic_scene(side, side, templ, n_instances=16, seed=3)
+    for i, row in enumerate(edges):
+        y, x = row - 128, 256 + i * (side - 768) // 2
+        scene[y:y + 256, x:x + 256] = np.maximum(
+            scene[y:y + 256, x:x + 256], templ)
+    return scene
+
+
 def config_frame(cfg: dict) -> tuple:
     """The frame ([H, W] gray or [H, W, 3] BGR uint8) and mask ([H, W]
     uint8 or None) of a golden configuration (the ``config`` of

@@ -25,7 +25,8 @@ from shape_based_matching_tpu_torch.ops.cuda.chain import (
 from shape_based_matching_tpu_torch.ops.cuda.coarse import (
     coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
 from shape_based_matching_tpu_torch.ops.cuda.extract import (
-    extract_counted, extract_counted_plain)
+    SEG_CELLS, count_prefix, count_prefix_plain, extract_counted,
+    extract_counted_plain)
 from shape_based_matching_tpu_torch.ops.cuda.frontend import (
     phase_deg_kernel, quant_spread, quant_spread_plain)
 from shape_based_matching_tpu_torch.ops.fastmath import phase_deg
@@ -41,8 +42,9 @@ from shape_based_matching_tpu_torch.utils import synthetic
 from shape_based_matching_tpu_torch.oracle import reference as oracle
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
 
-from .torch_extract_cases import (CHAIN_CASES, EXTRACT_CASES, chain_case,
-                                  chain_rows, extract_case)
+from .torch_extract_cases import (CHAIN_CASES, EXTRACT_CASES,
+                                  STRADDLE_CASES, chain_case, chain_rows,
+                                  extract_case, straddle_case)
 from .torch_fuzz import (FUZZ_CASES, MERGED_THRESHOLD, fuzz_case, merged_case,
                          oracle_keys, oracle_matches, oracle_pyramid,
                          port_keys)
@@ -393,12 +395,107 @@ def test_extract_kernel_equals_plain(dev, name):
         flat[1:] = S.reshape(-1)
         S = flat[1:].view(S.shape)
         assert S.data_ptr() % 16 and S.is_contiguous()
-    before = extract_counted.launches
-    got = extract_counted(S, *rest)
-    torch.cuda.synchronize()
-    assert extract_counted.launches == before + 1
+    got = _two_launches(S, *rest)
     _assert_extract_equal(got, extract_counted_plain(S, *rest))
     assert got[4].any()
+
+
+def _two_launches(*args):
+    """extract_counted on the card: the prefix kernel and the extraction,
+    one launch each."""
+    before = (count_prefix.launches, extract_counted.launches)
+    got = extract_counted(*args)
+    torch.cuda.synchronize()
+    assert (count_prefix.launches, extract_counted.launches) == (
+        before[0] + 1, before[1] + 1)
+    return got
+
+
+@pytest.mark.parametrize("name", list(STRADDLE_CASES))
+def test_extract_kernel_equals_plain_across_segment_edges(dev, name):
+    """Rows of 2.5 of the kernel's segments: the cap inside a run of live
+    cells across an edge, quirk slots over two segments and an
+    overstated count in a row of three, slots past n_above in many
+    closed-form groups (odd M: scalar loads)."""
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+            for a in straddle_case(name, SEG_CELLS)]
+    got = _two_launches(*args)
+    _assert_extract_equal(got, extract_counted_plain(*args))
+    assert got[4].any()
+
+
+@pytest.mark.parametrize("odd", [0, 3])
+def test_extract_kernel_long_rows_in_any_schedule(dev, odd):
+    """Three rows of 32 segments at about 0.2% live cells: the segments
+    of each row run on many blocks at once, look back through each
+    other's words and stop past the cap; ten calls give the twin's bits
+    each time, whatever the blocks' order."""
+    rng = np.random.RandomState(31 + odd)
+    K, M = 3, 32 * SEG_CELLS + odd
+    S = torch.from_numpy(np.where(rng.rand(1, K, M) < 0.002, 70, 10)
+                         .astype(np.int32)).to(dev)
+    pos = torch.tensor([M, M - SEG_CELLS - 9, M // 2], dtype=torch.int32,
+                       device=dev)
+    rmin = torch.full((K,), 50, dtype=torch.int32, device=dev)
+    t4n = torch.tensor([81.0, 93.0, 250.0], device=dev)
+    cnt = (torch.arange(M, device=dev) < pos[:, None]) & (S[0] >= 50)
+    cnt = cnt.sum(1, dtype=torch.int32)[None]
+    C = int(cnt[0, :2].sum()) + int(cnt[0, 2]) // 2  # inside row 2
+    args = (S, cnt, pos, rmin, t4n, 4, 512, C)
+    want = extract_counted_plain(*args)
+    for _ in range(10):
+        _assert_extract_equal(_two_launches(*args), want)
+
+
+def test_extract_kernel_zero_slots_is_the_prefix_alone(dev):
+    """C = 0 with B > 0: no slot and no extraction launch; n_above comes
+    from the prefix kernel."""
+    S, *rest = (a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in extract_case("batch3"))
+    rest[-1] = 0
+    before = (count_prefix.launches, extract_counted.launches)
+    got = extract_counted(S, *rest)
+    torch.cuda.synchronize()
+    assert (count_prefix.launches, extract_counted.launches) == (
+        before[0] + 1, before[1])
+    _assert_extract_equal(got, extract_counted_plain(S, *rest))
+    assert all(a.shape == (3, 0) for a in got[:5])
+
+
+@pytest.mark.parametrize("name", [*EXTRACT_CASES, *STRADDLE_CASES])
+def test_prefix_kernel_equals_plain(dev, name):
+    """count_prefix on the card: n_above, the work list (its records in
+    order), the zeroed ticket and, where rows have more than one segment,
+    look-back words, against the plain helper."""
+    args = extract_case(name) if name in EXTRACT_CASES else \
+        straddle_case(name, SEG_CELLS)
+    S, cnt, pos, rmin, t4n, _, _, C = (a.to(dev) if isinstance(
+        a, torch.Tensor) else a for a in args)
+    got = count_prefix(cnt, pos, rmin, t4n, S.shape[2], C)
+    torch.cuda.synchronize()
+    want = count_prefix_plain(cnt, pos, rmin, t4n, S.shape[2], C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    for b, n in enumerate(want[2][:, 0].tolist()):
+        assert torch.equal(got[1][b, :n], want[1][b, :n])
+        if S.shape[2] > SEG_CELLS:
+            assert (got[3][b, :, :n] == 0).all()
+
+
+def test_extract_call_is_two_device_kernels(dev):
+    """torch.profiler sees two launches a call and no device kernel but
+    the prefix kernel and the extraction: no torch op computes the prefix
+    on the card (the count from the host-side records, which are
+    complete; the device-side ones name the kernels)."""
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+    S, *rest = (a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in extract_case("aligned"))
+    queued, kern = device_work(lambda: extract_counted(S, *rest))
+    names = [n for n, _ in kern]
+    prefix = sum("prefix_kernel" in n for n in names)
+    extract = sum("extract_kernel" in n for n in names)
+    assert queued == 2 * CALLS
+    assert prefix + extract == len(names) and prefix > 0 and extract > 0
 
 
 @pytest.fixture(scope="module")
@@ -410,8 +507,7 @@ def card_chain_rows(dev):
 def test_extract_kernel_equals_plain_on_chain_rows(card_chain_rows,
                                                    threshold, C):
     args = chain_case(card_chain_rows, threshold, C)
-    got = extract_counted(*args)
-    torch.cuda.synchronize()
+    got = _two_launches(*args)
     _assert_extract_equal(got, extract_counted_plain(*args))
     assert got[4].any()
 
@@ -441,7 +537,7 @@ def test_overflow_rerun_at_65536_bucket_memory_is_bounded(dev):
     del lms
     want = det.match_batch(scene[None], thr,
                            cand_cap=-(-n_above // 1024) * 1024)[0]
-    kernels = (extract_counted, coarse_maps, map_refine)
+    kernels = (extract_counted, coarse_maps, map_refine, count_prefix)
     before = [k.launches for k in kernels]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -449,9 +545,11 @@ def test_overflow_rerun_at_65536_bucket_memory_is_bounded(dev):
     got = det.match(scene, thr)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    slabs, refines = (k.launches - b for k, b in zip(kernels[1:],
-                                                     before[1:]))
-    assert extract_counted.launches - before[0] == 2  # step and re-run
+    slabs, refines = (k.launches - b for k, b in zip(kernels[1:3],
+                                                     before[1:3]))
+    # step and re-run, each the prefix and the extraction
+    assert extract_counted.launches - before[0] == 2
+    assert count_prefix.launches - before[3] == 2
     assert slabs >= 2 and refines == slabs
     K, M1, M0 = 10000, (512 // 8) ** 2, (1024 // 4) ** 2
     bound = 4 * K * M1 + 4 * _MAP_SLAB * M0 + 64 * 65536 + (64 << 20)

@@ -1,5 +1,5 @@
-"""Time the port's frontend, chain and map refine steps of one checkout on
-one GPU.
+"""Time the port's frontend, chain, extraction and map refine steps of one
+checkout on one GPU.
 
     python tools/ab_torch_kernels.py [--root DIR] [--iters 200] [--out FILE]
 
@@ -17,6 +17,15 @@ against its plain twin first:
   channels and mode) shows whether two checkouts compiled a mode alike;
 * ``chain_scores`` (chain.cu) on the 10,000-template bank's coarse level
   (512^2, T=8, K=10000, M=4096) at B=1 and B=8, threshold 85;
+* ``extract_counted`` (extract.cu and what the checkout runs around
+  it: a torch count prefix and one kernel in older checkouts, two
+  kernels where the prefix runs on the card) at the flagship's step
+  (rot1000x63, cap 256, B=1 and B=8) and re-run (cap 1024), the dense
+  bank's chain rows (cap 4096) and the 4096^2 frame
+  (``utils/synthetic.huge_frame``) with rot10000x63 at threshold 85
+  (cap 65,536) and 60 (cap = n_above), each held bitwise
+  to ``extract_counted_plain`` (a NaN score against a NaN), with the
+  device kernels a call and their device time from torch.profiler;
 * ``refine_from_maps`` (map_refine.cu and what the checkout runs around
   it) on the overflow re-runs of the map route: the flagship frame with
   the 1000-template bank at cap 1024 and the 10,000-template bank at cap
@@ -85,15 +94,21 @@ PROFILING = _profiling()
 def _device_work(fn) -> dict:
     """Device kernels a call of `fn` runs, their summed device time a call
     and that time by kernel name, from torch.profiler (None where it
-    records no device work)."""
+    records no device work); also each kernel's events and mean ms an
+    event, since the profiler can drop a few events."""
     kern = PROFILING.device_kernels(fn)
     if not kern:
         return {"device_kernels": None, "device_ms": None}
     by_name: dict = {}
+    events: dict = {}
     for name, ms in kern:
         by_name[name] = by_name.get(name, 0.0) + ms / PROFILING.CALLS
+        events.setdefault(name, []).append(ms)
     return {"device_kernels": len(kern) / PROFILING.CALLS,
-            "device_ms": sum(by_name.values()), "device_by_name": by_name}
+            "device_ms": sum(by_name.values()), "device_by_name": by_name,
+            "device_events": {n: len(v) for n, v in events.items()},
+            "device_mean_ms": {n: sum(v) / len(v)
+                               for n, v in events.items()}}
 
 
 def _host_ms(fn, iters: int) -> float:
@@ -170,6 +185,34 @@ def _same_valid(got, want) -> bool:
         for g, w in zip(got[:4], want[:4]))
 
 
+def _same_extract(got, want) -> bool:
+    """extract_counted's six outputs: the integers exactly, the scores'
+    bits where a number and NaN where the other is NaN."""
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            nan = torch.isnan(w)
+            if not (torch.equal(torch.isnan(g), nan) and torch.equal(
+                    g[~nan].view(torch.int32), w[~nan].view(torch.int32))):
+                return False
+        elif not torch.equal(g, w):
+            return False
+    return len(got) == len(want) == 6
+
+
+def _synthetic():
+    """This repository's ``utils/synthetic.py``, loaded by its path as a
+    module of the imported package (its relative imports resolve there),
+    so a --root checkout that predates ``huge_frame`` gets the same
+    frame."""
+    spec = importlib.util.spec_from_file_location(
+        "shape_based_matching_tpu_torch.utils._ab_synthetic",
+        os.path.join(REPO, "shape_based_matching_tpu_torch", "utils",
+                     "synthetic.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _same(got, want) -> bool:
     pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
     return all(torch.equal(g.view(torch.int16) if g.dtype == torch.uint16
@@ -198,7 +241,11 @@ def main() -> None:
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
-    from shape_based_matching_tpu_torch.ops.cuda.coarse import coarse_maps
+    from shape_based_matching_tpu_torch import Detector
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        extract_counted, extract_counted_plain)
     from shape_based_matching_tpu_torch.ops.similarity import (
         _D_BUCKETS, LevelBank, _flat_offsets, _positions,
         _rmin_for_threshold, coarse_extract, distinct_templates, gather_bank,
@@ -311,6 +358,48 @@ def main() -> None:
             lambda rargs=rargs: refine_by_maps(lms[0][:1], *rargs),
             lambda window=window: window, check=_same_valid,
             device=True)
+
+    def extract_args(n_templates, batch, thr):
+        """extract_counted's arguments but the cap at the coarse level of
+        `batch` (the checkout's chain.cu where its planner engages, else
+        coarse.cu) and the largest n_above."""
+        det = Detector(num_features=63, T=(4, 8), device=dev)
+        det.class_templates["c"] = synthetic.load_bank_cache(os.path.join(
+            root, "bench_banks", os.path.basename(
+                synthetic.bank_cache_path(n_templates, 63))))
+        lms1, sizes, thr_t, _ = det._prepare(batch, None, thr, ["c"])
+        lbank = det._get_banks("c")[-1]
+        W1, H1 = sizes[-1][0] // 8, sizes[-1][1] // 8
+        lpos = _positions(lbank, 8, W1, H1)
+        lrmin, t4n = _rmin_for_threshold(lbank.nfeat, thr_t)
+        lplan = det._get_chain("c", sizes[-1])
+        if lplan is not None:
+            S, cnt = chain_scores(lms1[-1], lplan, lpos, lrmin)
+        else:
+            S, cnt = coarse_scores(lms1[-1], _flat_offsets(
+                lbank, 8, W1, W1 * H1, sizes[-1]), lpos, lrmin, W1 * H1)
+        n_above = int(extract_counted_plain(S, cnt, lpos, lrmin, t4n, 8,
+                                            W1, 0)[5].max())
+        return (S, cnt, lpos, lrmin, t4n, 8, W1), n_above
+
+    scenes = frames.cpu().numpy()
+    huge = _synthetic().huge_frame()[None]
+    for label, n_templates, batch, thr, cap in (
+            ("flagship step B=1", 1000, scenes[:1], 85.0, 256),
+            ("flagship step B=8", 1000, scenes, 85.0, 256),
+            ("flagship re-run", 1000, scenes[:1], 85.0, 1024),
+            ("dense 1024^2 chain rows", 10000, scenes[:1], 85.0, 4096),
+            ("4096^2 re-run", 10000, huge, 85.0, 65536),
+            ("4096^2 at 60 re-run", 10000, huge, 60.0, None)):
+        eargs, n_above = extract_args(n_templates, batch, thr)
+        eargs = (*eargs, n_above if cap is None else cap)
+        S = eargs[0]
+        run("extract_counted", f"{label} B={S.shape[0]} K={S.shape[1]} "
+            f"M={S.shape[2]} C={eargs[7]} (n_above {n_above})",
+            lambda eargs=eargs: extract_counted(*eargs),
+            lambda eargs=eargs: extract_counted_plain(*eargs),
+            check=_same_extract, device=True)
+        del eargs, S
     out = {"root": root, "card": f"{torch.cuda.get_device_name(0)} [{smi}]",
            "rows": rows, "frontend_sass": sass}
     print(json.dumps(out))
