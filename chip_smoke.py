@@ -142,7 +142,15 @@ Phases, each reported on its own line:
    route's slabs: extract.cu against its twin on the run's S at every
    cap it uses, its kernels' launches, its list equal to the one at a
    cap that holds every candidate, its peak device memory at most 8 GB,
-   and ms and peak GB of both runs (``overflow_phase``).
+   and ms and peak GB of both runs (``overflow_phase``);
+18. the entry points (``entry_phase``): ``entry.entry(n)``'s
+   flagship match step at 360, 1000 and 10,000 templates on the card,
+   each one's kernels launched and its match sets equal to the same step
+   on CPU tensors bit for bit, with its warm ms; ``entry.dryrun_multichip
+   (4)`` over the visible card(s); ``python -m
+   shape_based_matching_tpu_torch.bench --metric NAME`` for e2e1000,
+   fps_b8, e2e10000 and production_device, each its own process, exit 0
+   and a finite positive value.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -159,6 +167,7 @@ full report goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -200,6 +209,16 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _counted(kernels, fn):
+    """fn()'s result and the launches it made: every kernel's launch count
+    set to 0 just before it, and read just after."""
+    for kern in kernels:
+        kern.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {kern.__name__: kern.launches for kern in kernels}
 
 
 def _i64(t: torch.Tensor) -> torch.Tensor:
@@ -576,12 +595,8 @@ def dense_phase(card: str) -> tuple[list, dict]:
     # 3. the dense path through the kernels
     kernels = (quant_spread, chain_scores, refine_windows, coarse_maps,
                map_refine, extract_counted, count_prefix, coarse_scores)
-    for fn in kernels:
-        fn.launches = 0
     det.refine_routes.clear()
-    got = det.match(scene, THRESHOLD)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    got, launches = _counted(kernels, lambda: det.match(scene, THRESHOLD))
     print(f"dense path: launches {launches}; refine routes "
           f"{dict(det.refine_routes)}; {len(got)} matches")
     if not all(launches[fn.__name__] for fn in kernels[:-1]) \
@@ -870,12 +885,9 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
                map_refine, extract_counted, count_prefix, chain_scores)
-    for fn in kernels:
-        fn.launches = 0
     det.refine_routes.clear()
-    got = det.match(frame, threshold, mask=mask)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    got, launches = _counted(kernels, lambda: det.match(frame, threshold,
+                                                        mask=mask))
     routes = dict(det.refine_routes)
     print(f"{name}: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
@@ -1056,11 +1068,8 @@ def train_phase(card: str) -> tuple[dict, dict]:
     det = trained["rot1000x63"]
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
                map_refine)
-    for fn in kernels:
-        fn.launches = 0
-    got = det.match(_scene(golden["config"]), THRESHOLD)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    got, launches = _counted(
+        kernels, lambda: det.match(_scene(golden["config"]), THRESHOLD))
     if not all(launches.values()):
         raise AssertionError(f"trained flagship: a kernel was not launched: "
                              f"{launches}")
@@ -1293,12 +1302,8 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
                coarse_maps, map_refine)
-    for fn in kernels:
-        fn.launches = 0
     det.refine_routes.clear()
-    got = det.match(scene, THRESHOLD)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    got, launches = _counted(kernels, lambda: det.match(scene, THRESHOLD))
     routes = dict(det.refine_routes)
     print(f"multiclass: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
@@ -1660,11 +1665,8 @@ def production_phase(card: str) -> tuple[list, dict]:
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
                map_refine, chain_scores)
     det.match_icp(frame, thr_f, **kw)  # warm
-    for fn in kernels:
-        fn.launches = 0
-    got = det.match_icp(frame, thr_f, **kw)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    got, launches = _counted(kernels,
+                             lambda: det.match_icp(frame, thr_f, **kw))
     need = ["quant_spread", "coarse_scores", "refine_windows"]
     if golden["overflow"]:
         need += ["coarse_maps", "map_refine"]
@@ -1863,11 +1865,8 @@ def patch_phase(scene: np.ndarray, card: str) -> tuple[list, dict]:
         os.path.join(ROOT, cfg["bank"]))
     det.match(scene, cfg["threshold"])  # warm
     kernels = (quant_spread, coarse_scores, refine_windows)
-    for fn in kernels:
-        fn.launches = 0
-    got = det.match(scene, cfg["threshold"])
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    got, launches = _counted(kernels,
+                             lambda: det.match(scene, cfg["threshold"]))
     if not all(launches.values()):
         raise AssertionError(f"patch_2843: a kernel was not launched: "
                              f"{launches}")
@@ -2110,11 +2109,7 @@ def cli_phase(trained: dict, card: str) -> dict:
                                 "refine_windows"}}
 
         def launched(run, cid: str, what: str):
-            for fn in kernels:
-                fn.launches = 0
-            out = run()
-            torch.cuda.synchronize()
-            counts = {fn.__name__: fn.launches for fn in kernels}
+            out, counts = _counted(kernels, run)
             if any(not counts[k] for k in need[cid]):
                 raise AssertionError(f"{what}: a kernel of the path was not "
                                      f"launched: {counts}")
@@ -2501,15 +2496,6 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
                coarse_maps, map_refine)
 
-    def counted(fn):
-        """fn()'s result and the launches it made, every count zeroed
-        just before."""
-        for kern in kernels:
-            kern.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {kern.__name__: kern.launches for kern in kernels}
-
     def launched(launches: dict, need: set, what: str) -> None:
         if not all(launches[n] for n in need):
             raise AssertionError(f"{what}: a kernel of {sorted(need)} was "
@@ -2553,8 +2539,9 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
             cap = _cap_holding(max(n_above))
             with warnings.catch_warnings():
                 warnings.simplefilter("error")  # no tile may overflow
-                got, launches = counted(lambda: ps.match_huge_frame(
-                    det, frame, THRESHOLD, mesh=m, cand_cap=cap))
+                got, launches = _counted(
+                    kernels, lambda: ps.match_huge_frame(
+                        det, frame, THRESHOLD, mesh=m, cand_cap=cap))
             launched(launches, {"quant_spread", "refine_windows",
                                 "chain_scores" if chains is not None
                                 else "coarse_scores"}, f"spatial {snap}")
@@ -2621,8 +2608,9 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
             m = pm.make_mesh(data * templ, data=data)
             with warnings.catch_warnings():
                 warnings.simplefilter("error")
-                got, launches = counted(lambda: pm.match_images_sharded(
-                    det, batch, THRESHOLD, mesh=m, cand_cap=cap))
+                got, launches = _counted(
+                    kernels, lambda: pm.match_images_sharded(
+                        det, batch, THRESHOLD, mesh=m, cand_cap=cap))
             plans = det._sharded.get(("bench", "plans", templ,
                                       (batch.shape[2] // 2,
                                        batch.shape[1] // 2)))
@@ -2696,7 +2684,7 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
                                    iters=12, radius=8, cand_cap=256)
                 ["bench"][0] for b in range(len(frames))]
 
-    got, launches = counted(tier)
+    got, launches = _counted(kernels, tier)
     launched(launches, {"quant_spread", "coarse_scores", "refine_windows"},
              "production tier")
     for b, r in enumerate(per_frame()):
@@ -2732,8 +2720,8 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
                 "--test-dir", os.path.join(tmp, "frames"), "--threshold",
                 str(THRESHOLD), "--nms", "0.5", "--top-k", "1000", "--gray"]
         single, single_s = _cli(argv)
-        (sharded, sharded_s), launches = counted(
-            lambda: _cli(argv + ["--spatial-shards", str(SHARDS)]))
+        (sharded, sharded_s), launches = _counted(
+            kernels, lambda: _cli(argv + ["--spatial-shards", str(SHARDS)]))
         launched(launches, {"quant_spread", "coarse_scores",
                             "refine_windows"}, "cli --spatial-shards")
         if _parse_match(sharded)[0] != _parse_match(single)[0]:
@@ -2763,7 +2751,7 @@ def sharded_phase(trained: dict, card: str) -> tuple[list, dict]:
                 out[name] = buf.getvalue().splitlines()
             return out
 
-        lines, launches = counted(examples)
+        lines, launches = _counted(kernels, examples)
         launched(launches, {"quant_spread", "coarse_scores",
                             "refine_windows"}, "examples")
         for name, ls in lines.items():
@@ -3387,12 +3375,8 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
             raise AssertionError(f"overflow re-run {label}: {n_distinct} "
                                  f"distinct templates, {slabs} slab(s): the "
                                  f"slabs did not engage")
-        for fn in kernels:
-            fn.launches = 0
         det.refine_routes.clear()
-        got = det.match(frame, thr)
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in kernels}
+        got, launches = _counted(kernels, lambda: det.match(frame, thr))
         routes = dict(det.refine_routes)
         _launched(launches, (
             "quant_spread", "chain_scores" if chain else "coarse_scores",
@@ -3450,6 +3434,130 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
     for rec in dev_records:  # every check's error, as before
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return dev_records, out
+
+
+# phase 18: the entry points (shape_based_matching_tpu_torch/entry.py
+# and bench.py): the flagship step at each bank size, the metrics run as
+# their own processes
+ENTRY_TEMPLATES = (360, 1000, 10000)
+ENTRY_ITERS = 20
+ENTRY_METRICS = ("e2e1000", "fps_b8", "e2e10000", "production_device")
+DRYRUN_SHARDS = 4
+
+
+def entry_phase(card: str) -> dict:
+    """Phase 18, the entry points.
+
+    1. ``entry(n)`` for each of ``ENTRY_TEMPLATES`` on the card: its
+       step launches the frontend, the coarse kernel of its route
+       (chain.cu for the 10,000-template bank, coarse.cu otherwise, never
+       both), the count prefix, the extraction and the window refine;
+       its ``match_sets`` equal the same step's on CPU tensors (the
+       twins) bit for bit; its set size, ``n_above``, coarse route and
+       warm ms (mean of ``ENTRY_ITERS`` queued calls between CUDA
+       events); its device work a call from torch.profiler
+       (``_kernels_a_call``): the queued kernels, memsets and copies, the
+       device events recorded and their device ms a call, the share of
+       the warm time the device is busy, and the kernels that take most
+       of it; the synchronizing CUDA calls torch makes in a call
+       (``utils/profiling.sync_calls``).
+    2. ``dryrun_multichip(DRYRUN_SHARDS)`` over the visible card(s),
+       round-robin: every parity assert, its kernels launched, its ok
+       line.
+    3. ``python -m shape_based_matching_tpu_torch.bench --metric NAME``
+       for each of ``ENTRY_METRICS``, each its own process: exit 0 and a
+       finite positive value."""
+    from shape_based_matching_tpu_torch.entry import (dryrun_multichip,
+                                                      entry, match_sets)
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_scores)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        count_prefix, extract_counted)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows)
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, sync_calls)
+
+    kernels = (quant_spread, coarse_scores, chain_scores, count_prefix,
+               extract_counted, refine_windows)
+    out = {"steps": {}}
+    for n in ENTRY_TEMPLATES:
+        fn, args = entry(n)
+        res, launches = _counted(kernels, lambda: fn(*args))
+        coarse = ("chain_scores" if fn.coarse_route == "chain"
+                  else "coarse_scores")
+        other = ({"chain_scores", "coarse_scores"} - {coarse}).pop()
+        _launched(launches, ("quant_spread", coarse, "count_prefix",
+                             "extract_counted", "refine_windows"),
+                  f"entry({n})")
+        if launches[other]:
+            raise AssertionError(f"entry({n}) launched {other}: {launches}")
+        got = match_sets(*res[:5])
+        cfn, cargs = entry(n, device="cpu")
+        cres = cfn(*cargs)
+        if got != match_sets(*cres[:5]) or int(res[5][0]) != int(cres[5][0]):
+            raise AssertionError(f"entry({n}) on the card differs from the "
+                                 f"CPU twins")
+        ms = _time_ms(lambda: fn(*args), ENTRY_ITERS)
+        queued, dev_ms, events = _kernels_a_call(lambda: fn(*args))
+        busy = sum(dev_ms[k] * events[k] for k in dev_ms) / CALLS
+        top = sorted(((dev_ms[k] * events[k] / CALLS, k) for k in dev_ms),
+                     reverse=True)[:6]
+        _, syncs = sync_calls(lambda: fn(*args))
+        out["steps"][n] = {"set": len(got[0]), "n_above": int(res[5][0]),
+                           "coarse_route": fn.coarse_route,
+                           "launches": launches, "ms": ms,
+                           "queued_a_call": queued,
+                           "device_events": sum(events.values()),
+                           "device_ms": busy, "top": top, "syncs": syncs}
+        print(f"entry({n}) device work: {queued} kernels, memsets and "
+              f"copies queued a call; {sum(events.values())} device events "
+              f"recorded over {CALLS} calls, {busy:.4f} ms of device time a "
+              f"call, {busy / ms:.1%} of the warm {ms:.4f} ms; {syncs} "
+              f"synchronizing calls a call; most: "
+              + ", ".join(f"{k} {t:.4f}" for t, k in top) + f" on {card}")
+        print(f"entry({n}): {len(got[0])} matches in the set, n_above "
+              f"{int(res[5][0])}, coarse route {fn.coarse_route}, launches "
+              f"{launches}; equal to the CPU twins bit for bit; warm "
+              f"{ms:.4f} ms (mean of {ENTRY_ITERS} queued calls) on {card}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, launches = _counted(kernels,
+                               lambda: dryrun_multichip(DRYRUN_SHARDS))
+    line = buf.getvalue().strip()
+    print(line)
+    if not line.startswith("dryrun_multichip ok:"):
+        raise AssertionError(f"dryrun_multichip printed {line!r}")
+    _launched(launches, ("quant_spread", "coarse_scores", "count_prefix",
+                         "extract_counted", "refine_windows"),
+              "dryrun_multichip")
+    out["dryrun"] = {"line": line, "launches": launches}
+
+    out["bench"] = {}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    for name in ENTRY_METRICS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "shape_based_matching_tpu_torch.bench",
+             "--metric", name], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench --metric {name} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        value = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not (isinstance(value, float) and np.isfinite(value)
+                and value > 0):
+            raise AssertionError(f"bench --metric {name} gave {value!r}")
+        out["bench"][name] = {"value": value, "seconds": seconds}
+        print(f"bench --metric {name}: {value!r} ({seconds:.1f} s, its own "
+              f"process) on {card}")
+    return out
 
 
 def main() -> None:
@@ -3570,13 +3678,10 @@ def main() -> None:
                                       seed=s) for s in seeds])
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
                map_refine, extract_counted, count_prefix, chain_scores)
-    for fn in kernels:
-        fn.launches = 0
     det.refine_routes.clear()
-    got1 = det.match(scene, THRESHOLD)
-    got8 = det.match_batch(batch, THRESHOLD)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    (got1, got8), launches = _counted(
+        kernels, lambda: (det.match(scene, THRESHOLD),
+                          det.match_batch(batch, THRESHOLD)))
     print(f"main path: launches {launches}; refine routes "
           f"{dict(det.refine_routes)}; B=1 {len(got1)} matches, "
           f"B=8 {[len(m) for m in got8]} matches")
@@ -3748,6 +3853,12 @@ def main() -> None:
     t10 = time.perf_counter()
     report["phase_seconds_17"] = t10 - t9
     print(f"seconds: overflow re-run {t10 - t9:.1f}")
+
+    # 18. the entry points
+    report["entry"] = entry_phase(card)
+    t11 = time.perf_counter()
+    report["phase_seconds_18"] = t11 - t10
+    print(f"seconds: entry points {t11 - t10:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

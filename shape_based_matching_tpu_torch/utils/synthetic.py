@@ -4,7 +4,7 @@ Copies of ``shape_based_matching_tpu.utils.synthetic`` so the port never
 imports the JAX package: the same seeds give the same images,
 ``load_bank_cache`` reads the same ``bench_banks/*.npz`` snapshots under
 the same schema-version check, and ``build_rotated_detector`` trains the
-banks those snapshots hold.
+banks those snapshots hold (or, with ``cache=True``, reads them).
 """
 
 from __future__ import annotations
@@ -146,19 +146,27 @@ def load_bank_cache(path: str):
 def build_rotated_detector(num_templates: int = 360, num_features: int = 63,
                            T=(4, 8), size: int = 256, seed: int = 0,
                            dense: bool = False, n_ori: int = 8,
-                           device="cuda"):
+                           device="cuda", cache: bool = False):
     """Train a Detector with one class, "bench": one template trained on
     the star image (block noise when `dense`, feature-saturated templates
     for wide banks) under a full mask, and its num_templates - 1
     rotations by 360/num_templates degree steps about the image centre.
     These are the banks of the ``bank_cache_path`` snapshots (which leave
-    out Feature.theta). Returns (detector, training image)."""
+    out Feature.theta). With `cache` the class is read from its snapshot
+    where one is committed, as the JAX package's ``cache=True`` does, and
+    trained otherwise. Returns (detector, training image)."""
     from ..models.detector import Detector
 
     templ_img = (synthetic_block_noise_image(size, seed=seed) if dense
                  else synthetic_shape_image(size, seed))
     det = Detector(num_features=num_features, T=T, num_orientations=n_ori,
                    device=device)
+    if cache:
+        pyramids = load_bank_cache(bank_cache_path(
+            num_templates, num_features, T, size, seed, dense, n_ori))
+        if pyramids is not None and len(pyramids) == num_templates:
+            det.class_templates["bench"] = pyramids
+            return det, templ_img
     tid = det.add_template(templ_img, "bench", np.full_like(templ_img, 255))
     if tid != 0:
         raise RuntimeError("synthetic template training failed")

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it never imports JAX (training,
-persistence, the CLI, the utilities, the sharded paths, the examples and
-the oracle's copy included, which need neither
+persistence, the CLI, the utilities, the sharded paths, the examples,
+the entry points, the bench and the oracle's copy included, which
+need neither
 PyYAML nor an image library either), its kernel wrappers run the plain twins (and count no launch)
 only for CPU tensors, it builds kernels only with nvcc, and a failed
 build of its host helpers raises. The oracle's copy is the JAX package's
@@ -75,6 +76,10 @@ sharded = mesh.match_images_sharded(
     det, img[None], 85.0, mesh=mesh.make_mesh(2, devices=["cpu"]),
     class_id="t")
 assert sharded[0] == det.match(img, 85.0, ["t"])
+# the entry points and the bench import none of them either
+from shape_based_matching_tpu_torch import bench, entry
+fn, args = entry.entry(8, device="cpu")
+assert fn.coarse_route == "packed4" and args[0].shape == (1024, 1024)
 # the oracle's copy is NumPy only, and the package has its version
 import shape_based_matching_tpu_torch as port
 from shape_based_matching_tpu_torch.oracle import reference

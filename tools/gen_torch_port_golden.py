@@ -50,6 +50,12 @@ template_id, x, y, similarity float32 bits); ``build_fixture`` makes the
 detector and frames of a configuration with either package
 (``tests/test_torch_spatial.py``, ``tests/test_torch_mesh.py``).
 
+One more holds the multi-device dry run: ``dryrun`` writes
+``torch_port_dryrun.json``, the line that ``__graft_entry__.dryrun_multichip
+(n)`` prints on n = 8 and n = 1 virtual CPU devices, which the port's
+``entry.dryrun_multichip`` must print too (``tests/test_torch_entry.py``).
+It takes about ten minutes on one CPU core.
+
 ``tests/test_torch_detector.py``, ``tests/test_torch_icp.py`` and
 ``tests/test_torch_patch2843.py`` hold the port's CPU path, and
 ``chip_smoke.py`` the CUDA path, to these files.
@@ -70,10 +76,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+DRYRUN_DEVICES = (8, 1)
+
+
 def golden_path(name: str) -> str:
-    if name == "production_icp":
+    if name in ("production_icp", "dryrun"):
         return os.path.join(ROOT, "tests", "goldens",
-                            "torch_port_production_icp.json")
+                            f"torch_port_{name}.json")
     return os.path.join(ROOT, "tests", "goldens",
                         f"torch_port_{name}_matches.json")
 
@@ -279,6 +288,22 @@ def production_icp(Detector, synthetic) -> dict:
             "entries": entries}
 
 
+def dryrun() -> dict:
+    """The line of the JAX dry run at each of DRYRUN_DEVICES, by n."""
+    import contextlib
+    import io
+
+    import __graft_entry__
+
+    lines = {}
+    for n in DRYRUN_DEVICES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            __graft_entry__.dryrun_multichip(n)
+        (lines[str(n)],) = buf.getvalue().strip().splitlines()
+    return {"lines": lines}
+
+
 def main(names) -> None:
     sys.path.insert(0, ROOT)
     # the sharded goldens run on 8 virtual CPU devices
@@ -290,8 +315,15 @@ def main(names) -> None:
     from shape_based_matching_tpu import Detector
     from shape_based_matching_tpu.utils import synthetic
 
-    for name in names or [*CONFIGS, "production_icp", *SHARDED]:
+    for name in names or [*CONFIGS, "production_icp", *SHARDED, "dryrun"]:
         out = golden_path(name)
+        if name == "dryrun":
+            data = dryrun()
+            with open(out, "w") as f:
+                json.dump(data, f, indent=0)
+                f.write("\n")
+            print(f"{name} -> {out}")
+            continue
         if name in SHARDED:
             data = sharded(name, Detector, synthetic)
             with open(out, "w") as f:
