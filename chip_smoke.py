@@ -221,6 +221,12 @@ def _counted(kernels, fn):
     return out, {kern.__name__: kern.launches for kern in kernels}
 
 
+def _routes(det) -> dict:
+    """The refine levels a detector ran per route since its counters were
+    last cleared."""
+    return {r: det.counters[f"refine.{r}"] for r in ("window", "maps")}
+
+
 def _i64(t: torch.Tensor) -> torch.Tensor:
     if t.dtype == torch.uint16:  # few operators take uint16 on the card
         return t.view(torch.int16).to(torch.int64) & 0xFFFF
@@ -595,10 +601,10 @@ def dense_phase(card: str) -> tuple[list, dict]:
     # 3. the dense path through the kernels
     kernels = (quant_spread, chain_scores, refine_windows, coarse_maps,
                map_refine, extract_counted, count_prefix, coarse_scores)
-    det.refine_routes.clear()
+    det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(scene, THRESHOLD))
     print(f"dense path: launches {launches}; refine routes "
-          f"{dict(det.refine_routes)}; {len(got)} matches")
+          f"{_routes(det)}; {len(got)} matches")
     if not all(launches[fn.__name__] for fn in kernels[:-1]) \
             or launches["coarse_scores"]:
         raise AssertionError(f"the dense path missed a kernel or scored "
@@ -885,10 +891,10 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
                map_refine, extract_counted, count_prefix, chain_scores)
-    det.refine_routes.clear()
+    det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(frame, threshold,
                                                         mask=mask))
-    routes = dict(det.refine_routes)
+    routes = _routes(det)
     print(f"{name}: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
     need = ["quant_spread", "coarse_scores", "refine_windows",
@@ -1302,9 +1308,9 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
                coarse_maps, map_refine)
-    det.refine_routes.clear()
+    det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(scene, THRESHOLD))
-    routes = dict(det.refine_routes)
+    routes = _routes(det)
     print(f"multiclass: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
     need = ["quant_spread", c_fn.__name__, "refine_windows"]
@@ -2942,7 +2948,7 @@ def oracle_phase(card: str) -> dict:
             continue
         for fn in kernels:
             fn.launches = 0
-        det.refine_routes.clear()
+        det.counters.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = det.match(frame, threshold, mask=mask)
@@ -2961,14 +2967,14 @@ def oracle_phase(card: str) -> dict:
         _launched(launches, ("quant_spread", "coarse_scores")
                   + (("coarse_maps", "map_refine") if name == "e2e1000"
                      else ()), name)
-        if name == "e2e1000" and not det.refine_routes["maps"]:
+        if name == "e2e1000" and not det.counters["refine.maps"]:
             raise AssertionError("e2e1000: the re-run did not take the map "
                                  "route")
         out[name] = _oracle_line(
             f"{name} Detector.match vs match_class", len(got_set),
             "matches", oracle_s, card_s,
             f" (oracle list {len(want)}, launches {launches}, refine "
-            f"routes {dict(det.refine_routes)})")
+            f"routes {_routes(det)})")
     for seed, variant in torch_fuzz.FUZZ_CASES + ((77, "merged"),):
         if variant == "merged":
             det, scene = torch_fuzz.merged_case(DEVICE)
@@ -3375,9 +3381,9 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
             raise AssertionError(f"overflow re-run {label}: {n_distinct} "
                                  f"distinct templates, {slabs} slab(s): the "
                                  f"slabs did not engage")
-        det.refine_routes.clear()
+        det.counters.clear()
         got, launches = _counted(kernels, lambda: det.match(frame, thr))
-        routes = dict(det.refine_routes)
+        routes = _routes(det)
         _launched(launches, (
             "quant_spread", "chain_scores" if chain else "coarse_scores",
             "refine_windows", "coarse_maps", "map_refine",
@@ -3678,12 +3684,12 @@ def main() -> None:
                                       seed=s) for s in seeds])
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
                map_refine, extract_counted, count_prefix, chain_scores)
-    det.refine_routes.clear()
+    det.counters.clear()
     (got1, got8), launches = _counted(
         kernels, lambda: (det.match(scene, THRESHOLD),
                           det.match_batch(batch, THRESHOLD)))
     print(f"main path: launches {launches}; refine routes "
-          f"{dict(det.refine_routes)}; B=1 {len(got1)} matches, "
+          f"{_routes(det)}; B=1 {len(got1)} matches, "
           f"B=8 {[len(m) for m in got8]} matches")
     # the planner declines this sparse bank: no chain
     if not all(launches[fn.__name__] for fn in kernels[:-1]) \

@@ -808,9 +808,12 @@ def cmd_info(args) -> int:
 
 
 def _dispatch_audit(dev) -> None:
-    """Device kernels and synchronizing calls of one warm B=1 match
-    (256x256, 4 templates) through utils/profiling.py: separates a slow
-    host from a code change that grew the launches."""
+    """Device work and synchronizing calls of one warm B=1 match (256x256,
+    4 templates) through utils/profiling.py: separates a slow host from a
+    code change that grew the launches. The count is of the host-side
+    CUDA calls that queued device work (kernels, memsets, copies), which
+    the profiler records completely where its device side can lose
+    events."""
     from .utils import profiling
     from .utils.synthetic import build_rotated_detector, synthetic_scene
 
@@ -822,12 +825,11 @@ def _dispatch_audit(dev) -> None:
     if dev.type != "cuda":
         print("  device kernels           not measured (no card)")
         return
-    kernels = profiling.device_kernels(lambda: det.match(scene, 80.0))
+    queued, events = profiling.device_work(lambda: det.match(scene, 80.0))
     _, syncs = profiling.sync_calls(lambda: det.match(scene, 80.0))
-    per_call = len(kernels) / profiling.CALLS
-    print(f"  device kernels a call    {per_call:g}")
+    print(f"  device work a call       {queued / profiling.CALLS:g}")
     print(f"  device ms a call         "
-          f"{sum(ms for _, ms in kernels) / profiling.CALLS:.4f}")
+          f"{sum(ms for _, ms in events) / profiling.CALLS:.4f}")
     print(f"  synchronizing calls      {syncs}")
 
 
@@ -951,7 +953,7 @@ def main(argv=None) -> int:
                      help="rotated templates of the synthetic bank whose "
                           "launch choices are reported")
     inf.add_argument("--dispatch", action="store_true",
-                     help="audit device kernels and synchronizing calls "
+                     help="audit device work and synchronizing calls "
                           "of one warm match")
     inf.set_defaults(fn=cmd_info)
 

@@ -38,6 +38,18 @@ window kernel; the re-run, at a cap of 1024 or more on a bank that is not
 pathological, takes the map route (level maps of the distinct candidate
 templates, then the map-window kernel), and the window otherwise.
 
+**Spans and counters.** ``match`` and ``match_batch`` each open one root
+span (``sbm.match`` / ``sbm.match_batch``) over ``sbm.prepare`` (checks,
+the host copy, ``sbm.upload``), ``sbm.pyramid`` (per level
+``sbm.pyramid.down``, ``.frontend``, ``.lm``, ``.tail``), ``sbm.step``
+(``sbm.coarse``, a ``sbm.refine`` a level), ``sbm.download``, a
+``sbm.rerun`` a re-run frame, ``sbm.list`` and ``sbm.sort_dedup``
+(``utils/profiling.span``: no-ops unless a recording or torch.profiler
+runs). ``Detector.counters`` counts on the host, always: frames, steps,
+re-runs, candidates (each listed frame's ``n_above``, already on the
+host), matches returned, refine levels per route, and the bank and
+chain-plan cache misses.
+
 Trained templates and match results are bit-identical to the JAX
 package's ``Detector`` (template id, position and float32 similarity of
 every match). Subpixel pose refinement of the matches (``match_icp``,
@@ -72,6 +84,7 @@ from ..ops.response import build_lm_from_spread, to_i32
 from ..ops.similarity import (LevelBank, coarse_extract, coarse_route,
                               refine_by_maps, refine_candidates)
 from ..utils.convert import level_max_dims, pyramids_to_banks
+from ..utils.profiling import span
 from ..utils.yaml_io import (class_file_path, dump_opencv_yaml,
                              load_opencv_yaml)
 from . import training
@@ -124,16 +137,18 @@ def _sort_dedup(matches: list) -> list:
     only true duplicates (same template converging from several coarse
     candidates). Result: a deterministic superset of the reference's
     match list; downstream NMS resolves same-position hypotheses."""
-    matches.sort(key=lambda m: (-m.similarity, m.template_id, m.x, m.y,
-                                m.class_id))
-    out = []
-    seen = set()
-    for m in matches:
-        key = (m.x, m.y, m.similarity, m.class_id, m.template_id)
-        if key in seen:
-            continue
-        seen.add(key)
-        out.append(m)
+    with span("sbm.sort_dedup") as sp:
+        matches.sort(key=lambda m: (-m.similarity, m.template_id, m.x, m.y,
+                                    m.class_id))
+        out = []
+        seen = set()
+        for m in matches:
+            key = (m.x, m.y, m.similarity, m.class_id, m.template_id)
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(m)
+        sp.note(matches=len(out))
     return out
 
 
@@ -151,17 +166,22 @@ def _batch_pyramid(sources: torch.Tensor, T: tuple, levels: int,
     opencv_contrib #2843 mode)."""
     flats = []
     src, msk = sources, masks
-    for l in range(levels):
-        if l > 0:
-            src = pyr_down_u8(src)
-            if msk is not None:
-                msk = resize_nearest(msk, src.shape[-2:])
-        lm = build_lm_from_spread(
-            quant_spread(src, weak_threshold, T[l], n_ori, msk,
-                         patch_2843=patch_2843), T[l], n_ori)
-        B, M = lm.shape[0], lm.shape[-1]
-        flats.append(torch.cat([lm.reshape(B, -1), lm.new_zeros((B, M))],
-                               dim=1))
+    with span("sbm.pyramid", levels=levels):
+        for l in range(levels):
+            if l > 0:
+                with span("sbm.pyramid.down", level=l):
+                    src = pyr_down_u8(src)
+                    if msk is not None:
+                        msk = resize_nearest(msk, src.shape[-2:])
+            with span("sbm.pyramid.frontend", level=l):
+                spread = quant_spread(src, weak_threshold, T[l], n_ori, msk,
+                                      patch_2843=patch_2843)
+            with span("sbm.pyramid.lm", level=l):
+                lm = build_lm_from_spread(spread, T[l], n_ori)
+            with span("sbm.pyramid.tail", level=l):
+                B, M = lm.shape[0], lm.shape[-1]
+                flats.append(torch.cat([lm.reshape(B, -1),
+                                        lm.new_zeros((B, M))], dim=1))
     return tuple(flats)
 
 
@@ -174,24 +194,29 @@ def _match_batch_class(lmflats: tuple, banks: list, threshold: torch.Tensor,
     bank's plan, when given), then refinement down to level 0, by the map
     route at the levels in `map_levels` and by the window elsewhere.
     Returns (k, x, y, score, valid) each [B, cand_cap] and n_above [B]."""
-    k, x, y, sc, valid, n_above = coarse_extract(
-        lmflats[-1], banks[-1], T[-1], sizes[-1], threshold, cand_cap, chain,
-        n_ori)
+    with span("sbm.coarse", route="chain" if chain is not None else "plain"):
+        k, x, y, sc, valid, n_above = coarse_extract(
+            lmflats[-1], banks[-1], T[-1], sizes[-1], threshold, cand_cap,
+            chain, n_ori)
     for l in range(levels - 2, -1, -1):
-        refine = refine_by_maps if l in map_levels else refine_candidates
-        k, x, y, sc, valid = refine(lmflats[l], banks[l], T[l], sizes[l], k,
-                                    x, y, valid, threshold, n_ori)
+        maps = l in map_levels
+        with span("sbm.refine", level=l, route="maps" if maps else "window"):
+            refine = refine_by_maps if maps else refine_candidates
+            k, x, y, sc, valid = refine(lmflats[l], banks[l], T[l], sizes[l],
+                                        k, x, y, valid, threshold, n_ori)
     return k, x, y, sc, valid, n_above
 
 
 def _to_host(result) -> np.ndarray:
     """One device-to-host transfer of a class step's results: [B, 5*C + 1]
-    int32 rows (k, x, y, score bits, valid; then n_above)."""
-    k, x, y, sc, valid, n_above = result
-    B = k.shape[0]
-    rows = torch.stack([k, x, y, sc.view(torch.int32),
-                        valid.to(torch.int32)], dim=1).reshape(B, -1)
-    return torch.cat([rows, n_above[:, None]], dim=1).cpu().numpy()
+    int32 rows (k, x, y, score bits, valid; then n_above). Its span
+    holds the wait for the device."""
+    with span("sbm.download"):
+        k, x, y, sc, valid, n_above = result
+        B = k.shape[0]
+        rows = torch.stack([k, x, y, sc.view(torch.int32),
+                            valid.to(torch.int32)], dim=1).reshape(B, -1)
+        return torch.cat([rows, n_above[:, None]], dim=1).cpu().numpy()
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -200,14 +225,22 @@ def _as_tensor(a) -> torch.Tensor:
         np.array(a))
 
 
+def _one(a):
+    """A batch of one: a view of the tensor or array `a` with a leading
+    axis of 1 (``_as_tensor`` makes the copy)."""
+    return (a if isinstance(a, torch.Tensor) else np.asarray(a))[None]
+
+
 def _planar(frames, device) -> torch.Tensor:
     """uint8 frames, gray [B, H, W] or BGR [B, H, W, 3] (numpy or a
     tensor), on `device` as the frontend and the gradients read them:
     [B, H, W], or planar [B, 3, H, W]; contiguous."""
-    frames = _as_tensor(frames).to(device)
-    if frames.dim() == 4:
-        frames = frames.permute(0, 3, 1, 2)
-    return frames.contiguous()
+    frames = _as_tensor(frames)
+    with span("sbm.upload", bytes=frames.nbytes):
+        frames = frames.to(device)
+        if frames.dim() == 4:
+            frames = frames.permute(0, 3, 1, 2)
+        return frames.contiguous()
 
 
 def _strong_lower_bound(strong_threshold: float) -> float:
@@ -364,9 +397,13 @@ class Detector:
         # (group, ...) -> a group's banks, bank slices or chain plans placed
         # on a shard's device (parallel/; _shard_cached)
         self._sharded: dict[tuple, object] = {}
-        # refine levels run per route ("window", "maps"), for tests and
-        # profiles to see which route a match took
-        self.refine_routes: Counter = Counter()
+        # what the match path did, always on (host counts, no device
+        # read): "frames", "steps" (class steps, re-runs included),
+        # "reruns", "candidates" (the sum of each listed frame's
+        # n_above), "matches" (in the lists returned), "refine.window" /
+        # "refine.maps" (refine levels run per route), and the cache
+        # misses "bank_builds" and "chain_plans"
+        self.counters: Counter = Counter()
         # (class_id, template_id) -> level-0 feature (x, y), [n, 2] float32
         # (models/icp.py)
         self._icp_pts: dict[tuple, np.ndarray] = {}
@@ -560,6 +597,7 @@ class Detector:
             if isinstance(group, tuple):
                 return self._get_merged(group)[0]
             pyramids = self.class_templates[group]
+            self.counters["bank_builds"] += 1
             banks = pyramids_to_banks(pyramids, self.pyramid_levels,
                                       self.device, self.num_orientations)
             self._banks[group] = banks
@@ -580,6 +618,7 @@ class Detector:
         if order in self._merged:
             return (self._banks[order],) + self._merged[order]
         per_class = [self._get_banks(c) for c in order]
+        self.counters["bank_builds"] += 1
         banks = []
         for l in range(self.pyramid_levels):
             parts = [pc[l] for pc in per_class]
@@ -610,6 +649,7 @@ class Detector:
         kernel). A merged bank gets the planner's own decision."""
         key = (group, tuple(size_wh))
         if key not in self._chain_plans:
+            self.counters["chain_plans"] += 1
             bank = self._get_banks(group)[-1]
             plan = plan_chain(LevelBank(*(f.cpu().numpy() for f in bank)),
                               self.T_at_level[-1], size_wh,
@@ -693,22 +733,33 @@ class Detector:
         every candidate, else the last, keeping the first candidates in
         extraction order and warning (the JAX package's
         ``_match_escalating``)."""
-        frames = _as_tensor(source)[None]
-        masks = None if mask is None else _as_tensor(mask)[None]
-        if max_candidates is None:
-            return self.match_batch(frames, threshold, class_ids, masks)[0]
+        with span("sbm.match", B=1,
+                  classes=len(class_ids or self.class_templates)):
+            frames = _one(source)
+            masks = None if mask is None else _one(mask)
+            if max_candidates is None:
+                return self._match_batch(frames, threshold, class_ids,
+                                         masks)[0]
+            return self._match_escalating(frames, masks, threshold,
+                                          class_ids, int(max_candidates))
+
+    def _match_escalating(self, frames, masks, threshold: float, class_ids,
+                          max_candidates: int) -> list[Match]:
+        """``match`` with `max_candidates`, inside its root span."""
         lms, sizes, thr, class_ids = self._prepare(frames, masks, threshold,
                                                    class_ids)
+        self.counters["frames"] += 1
         out = []
         for class_id in class_ids:
             K = self._get_banks(class_id)[-1].fx.shape[0]
             w, h = sizes[-1]
             total = K * (w // self.T_at_level[-1]) * (h // self.T_at_level[-1])
-            caps = [min(c, int(max_candidates))
+            caps = [min(c, max_candidates)
                     for c in [c for c in _CAND_BUCKETS if c <= total]
                     or [total]]
             row = self._class_step(lms, class_id, thr, sizes, caps[0])[0]
             n_above = int(row[-1])
+            self.counters["candidates"] += n_above
             if n_above > caps[0]:
                 cap = next((c for c in caps if n_above <= c), caps[-1])
                 if n_above > cap:
@@ -716,40 +767,47 @@ class Detector:
                         f"candidate overflow: {n_above} above threshold, "
                         f"cap {cap}; raise max_candidates for full parity")
                 if cap != caps[0]:
-                    row = self._class_step(lms, class_id, thr, sizes, cap,
-                                           rerun=True)[0]
+                    with span("sbm.rerun", frame=0, n_above=n_above,
+                              cap=cap):
+                        self.counters["reruns"] += 1
+                        row = self._class_step(lms, class_id, thr, sizes,
+                                               cap, rerun=True)[0]
             out.extend(self._matches(row, class_id))
-        return _sort_dedup(out)
+        out = _sort_dedup(out)
+        self.counters["matches"] += len(out)
+        return out
 
     def _prepare(self, sources, masks, threshold: float, class_ids):
         """Checks and uploads the frames and masks, builds their
         linear-memory pyramid; returns (lms, sizes, threshold as a 0-d
         float32 device tensor, the trained classes among `class_ids`,
         all of them when it is empty)."""
-        frames = _as_tensor(sources)
-        color = frames.dim() == 4 and frames.shape[-1] == 3
-        if frames.dtype != torch.uint8 or not (frames.dim() == 3 or color):
-            raise ValueError("match_batch expects uint8 [B, H, W] or "
-                             "[B, H, W, 3] frames")
-        self._validate_size(frames.shape[1:3])
-        frames = _planar(frames, self.device)
-        if masks is not None:
-            masks = _as_tensor(masks)
-            if masks.dtype != torch.uint8 or masks.shape != (
-                    frames.shape[0], *frames.shape[-2:]):
-                raise ValueError("masks must be uint8 [B, H, W] like the "
-                                 "frames")
-            masks = masks.to(self.device).contiguous()
-        sizes = tuple(self._level_sizes(frames.shape[-2:]))
+        with span("sbm.prepare"):
+            frames = _as_tensor(sources)
+            color = frames.dim() == 4 and frames.shape[-1] == 3
+            if frames.dtype != torch.uint8 or not (frames.dim() == 3
+                                                   or color):
+                raise ValueError("match_batch expects uint8 [B, H, W] or "
+                                 "[B, H, W, 3] frames")
+            self._validate_size(frames.shape[1:3])
+            frames = _planar(frames, self.device)
+            if masks is not None:
+                masks = _as_tensor(masks)
+                if masks.dtype != torch.uint8 or masks.shape != (
+                        frames.shape[0], *frames.shape[-2:]):
+                    raise ValueError("masks must be uint8 [B, H, W] like "
+                                     "the frames")
+                masks = masks.to(self.device).contiguous()
+            sizes = tuple(self._level_sizes(frames.shape[-2:]))
+            # a fill on the device: torch.tensor(..., device=) would copy
+            # from the host and wait for the card
+            thr = torch.full((), threshold, dtype=torch.float32,
+                             device=self.device)
+            class_ids = [c for c in (class_ids or self.class_templates)
+                         if c in self.class_templates]
         lms = _batch_pyramid(frames, self.T_at_level, self.pyramid_levels,
                              self.weak_threshold, self.num_orientations,
                              masks, self.patch_2843)
-        # a fill on the device: torch.tensor(..., device=) would copy from
-        # the host and wait for the card
-        thr = torch.full((), threshold, dtype=torch.float32,
-                         device=self.device)
-        class_ids = [c for c in (class_ids or self.class_templates)
-                     if c in self.class_templates]
         return lms, sizes, thr, class_ids
 
     def match_batch(self, sources, threshold: float, class_ids=None,
@@ -778,9 +836,18 @@ class Detector:
         port's overflow flag never counts distinct templates, where the
         JAX package's does past cand_cap 4096 (its map route)."""
         del distinct_cap
+        with span("sbm.match_batch", B=len(sources),
+                  classes=len(class_ids or self.class_templates)):
+            return self._match_batch(sources, threshold, class_ids, masks,
+                                     cand_cap, as_matches)
+
+    def _match_batch(self, sources, threshold: float, class_ids, masks,
+                     cand_cap: int = 256, as_matches: bool = True):
+        """``match_batch``, inside its caller's root span."""
         lms, sizes, thr, class_ids = self._prepare(sources, masks,
                                                    threshold, class_ids)
         B = lms[0].shape[0]
+        self.counters["frames"] += B
         if not as_matches:
             out = {}
             for class_id in class_ids:
@@ -800,14 +867,20 @@ class Detector:
             for b in range(B):
                 row = host[b]
                 n_above = int(row[-1])
+                self.counters["candidates"] += n_above
                 if n_above > cap:
                     re_cap = next((c for c in _CAND_BUCKETS if c >= n_above),
                                   n_above)
-                    row = self._class_step(tuple(f[b:b + 1] for f in lms),
-                                           group, thr, sizes, re_cap,
-                                           rerun=True)[0]
+                    with span("sbm.rerun", frame=b, n_above=n_above,
+                              cap=re_cap):
+                        self.counters["reruns"] += 1
+                        row = self._class_step(
+                            tuple(f[b:b + 1] for f in lms), group, thr,
+                            sizes, re_cap, rerun=True)[0]
                 out[b].extend(self._matches(row, group))
-        return [_sort_dedup(m) for m in out]
+        lists = [_sort_dedup(m) for m in out]
+        self.counters["matches"] += sum(map(len, lists))
+        return lists
 
     def _step(self, lms: tuple, group, thr: torch.Tensor, sizes: tuple,
               cap: int, rerun: bool = False):
@@ -816,16 +889,19 @@ class Detector:
         first step refines through the window; an overflow re-run at a
         cap of _MAP_MIN_CAP or more takes the map route at every level
         whose bank is not pathological."""
-        levels = self.pyramid_levels - 1
-        maps = tuple(l for l in range(levels)
-                     if rerun and cap >= _MAP_MIN_CAP
-                     and not self._is_pathological(group, l, sizes[l]))
-        self.refine_routes["maps"] += len(maps)
-        self.refine_routes["window"] += levels - len(maps)
-        return _match_batch_class(
-            lms, self._get_banks(group), thr, self.T_at_level,
-            self.pyramid_levels, sizes, cap, self._get_chain(group, sizes[-1]),
-            maps, self.num_orientations)
+        with span("sbm.step", cap=cap, rerun=rerun):
+            levels = self.pyramid_levels - 1
+            maps = tuple(l for l in range(levels)
+                         if rerun and cap >= _MAP_MIN_CAP
+                         and not self._is_pathological(group, l, sizes[l]))
+            self.counters["steps"] += 1
+            self.counters["refine.maps"] += len(maps)
+            self.counters["refine.window"] += levels - len(maps)
+            return _match_batch_class(
+                lms, self._get_banks(group), thr, self.T_at_level,
+                self.pyramid_levels, sizes, cap,
+                self._get_chain(group, sizes[-1]), maps,
+                self.num_orientations)
 
     def _class_step(self, lms: tuple, group, thr: torch.Tensor,
                     sizes: tuple, cap: int, rerun: bool = False):
@@ -835,16 +911,18 @@ class Detector:
     def _matches(self, row: np.ndarray, group) -> list[Match]:
         """The valid candidates of a downloaded row as Matches; a merged
         group's templates map back to their class and template id."""
-        k, x, y, sc_bits, valid = row[:-1].reshape(5, -1)
-        sc = sc_bits.view(np.float32)
-        idx = np.nonzero(valid)[0]
-        if isinstance(group, tuple):
-            class_of_k, tid_of_k = self._merged[group]
-            return [Match(int(x[i]), int(y[i]), float(sc[i]),
-                          group[class_of_k[k[i]]], int(tid_of_k[k[i]]))
-                    for i in idx]
-        return [Match(int(x[i]), int(y[i]), float(sc[i]), group, int(k[i]))
-                for i in idx]
+        with span("sbm.list") as sp:
+            k, x, y, sc_bits, valid = row[:-1].reshape(5, -1)
+            sc = sc_bits.view(np.float32)
+            idx = np.nonzero(valid)[0]
+            sp.note(matches=len(idx))
+            if isinstance(group, tuple):
+                class_of_k, tid_of_k = self._merged[group]
+                return [Match(int(x[i]), int(y[i]), float(sc[i]),
+                              group[class_of_k[k[i]]], int(tid_of_k[k[i]]))
+                        for i in idx]
+            return [Match(int(x[i]), int(y[i]), float(sc[i]), group,
+                          int(k[i])) for i in idx]
 
     # ------------------------------------------------------------------
     # Pose refinement

@@ -5,14 +5,13 @@ and resets; `record(key)` accumulates into a named bucket; `display()` /
 `display_csv()` emit totals. `CSVStat` reproduces the jabil driver's
 min/max/mean aggregation over per-frame rows (test_jabil.cpp:364-371).
 
-For device work, wrap the timed region in `device_timer`, which waits
-for the card that holds the given tensors, so asynchronous launches do not
-hide the cost; the CLI's ``--trace`` (torch.profiler) is the deep dive.
+These clocks are the host's: device work queued in a timed region may
+still run after it. The match path's own spans (``utils/profiling.span``)
+and the CLI's ``--trace`` (torch.profiler) split a frame's time by layer.
 """
 
 from __future__ import annotations
 
-import contextlib
 import io
 import time
 from typing import Dict, Iterable, List
@@ -60,19 +59,6 @@ class Timer:
     @property
     def records(self) -> Dict[str, float]:
         return dict(self._acc)
-
-
-@contextlib.contextmanager
-def device_timer(timer: Timer, key: str, *tensors):
-    """Time a device region: waits for the CUDA devices of `tensors`
-    before stamping `key`."""
-    import torch
-
-    timer.reset()
-    yield
-    for dev in {t.device for t in tensors if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
-    timer.record(key)
 
 
 class CSVStat:

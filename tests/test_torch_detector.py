@@ -33,6 +33,11 @@ def _keys(matches):
             for m in matches]
 
 
+def _routes(det):
+    """Refine levels run per route, from the detector's counters."""
+    return {r: det.counters[f"refine.{r}"] for r in ("window", "maps")}
+
+
 @pytest.fixture(scope="module")
 def small():
     """The bank of tests/test_interpret_dispatch.py, two 256^2 scenes, the
@@ -121,10 +126,10 @@ def test_dense_bank_chain_and_map_route_equal_jax(dense, threshold):
     coarse candidates than the cap of 256 (1486 at 80), so its re-run at
     a cap of 1024 or more refines through the map route."""
     jdet, det, scene = dense
-    det.refine_routes.clear()
+    det.counters.clear()
     got = det.match(scene, threshold)
     assert det._get_chain("bench", (128, 128)) is not None
-    assert det.refine_routes == {"window": 1, "maps": 1}
+    assert _routes(det) == {"window": 1, "maps": 1}
     assert len(got) > 0
     assert _keys(got) == _keys(jdet.match(scene, threshold))
 
@@ -134,9 +139,9 @@ def test_forced_overflow_takes_map_route(dense):
     map route, and the lists still equal JAX's."""
     jdet, det, scene = dense
     frames = np.stack([scene, np.ascontiguousarray(scene[::-1])])
-    det.refine_routes.clear()
+    det.counters.clear()
     got = det.match_batch(frames, 80.0, cand_cap=4)
-    assert det.refine_routes == {"window": 1, "maps": 2}
+    assert _routes(det) == {"window": 1, "maps": 2}
     assert [_keys(g) for g in got] == [_keys(w) for w in
                                        jdet.match_batch(frames, 80.0)]
 
@@ -173,7 +178,7 @@ def test_full_size_dense_bank_matches_committed_golden():
     the re-run at 4096 refines through the map route."""
     det, got, want = _golden_match("e2e10000")
     assert det._get_chain("bench", (512, 512)) is not None
-    assert det.refine_routes == {"window": 1, "maps": 1}
+    assert _routes(det) == {"window": 1, "maps": 1}
     assert [list(k) for k in _keys(got)] == want
     assert len(got) > 0
 

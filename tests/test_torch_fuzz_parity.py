@@ -63,13 +63,13 @@ def test_fuzz_match_parity(cases, seed, variant):
 @pytest.mark.parametrize("seed,variant", FUZZ_CASES)
 def test_fuzz_match_parity_low_threshold(cases, seed, variant):
     det, scene, mask, _, pyramid = cases(seed, variant)
-    det.refine_routes.clear()
+    det.counters.clear()
     got = port_keys(det.match(scene, LOW_THRESHOLD, ["fuzz"], mask=mask))
     want = oracle_keys(oracle_matches(det, pyramid, LOW_THRESHOLD, ["fuzz"]))
     assert got == want, (seed, variant, scene.shape, det.num_features)
     assert got
     if seed in (0, 1, 5, 6):  # these overflow the cap of 256
-        assert det.refine_routes["maps"] == 1
+        assert det.counters["refine.maps"] == 1
 
 
 def test_fuzz_multi_class_merged_parity():
