@@ -831,8 +831,9 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
         map_refine, map_refine_plain)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
-    from shape_based_matching_tpu_torch.ops.filters import (
-        pyr_down_u8, resize_nearest)
+    from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
+        linear_memories, pyr_down)
+    from shape_based_matching_tpu_torch.ops.filters import resize_nearest
     from shape_based_matching_tpu_torch.ops.similarity import (
         _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
     from shape_based_matching_tpu_torch.ops.window import window_origin
@@ -854,7 +855,7 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
                              f"declines this bank")
 
     # kernels against their twins at the path's shapes
-    half = pyr_down_u8(frames)
+    half = pyr_down(frames)
     half_m = None if masks is None else resize_nearest(masks,
                                                        half.shape[-2:])
     k1_err = max(_max_abs_err([(quant_spread(f, weak, t, n_ori, m),
@@ -890,7 +891,8 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
 
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, extract_counted, count_prefix, chain_scores)
+               map_refine, extract_counted, count_prefix, pyr_down,
+               linear_memories, chain_scores)
     det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(frame, threshold,
                                                         mask=mask))
@@ -898,7 +900,7 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     print(f"{name}: launches {launches}; refine routes {routes}; "
           f"{len(got)} matches")
     need = ["quant_spread", "coarse_scores", "refine_windows",
-            "extract_counted", "count_prefix"]
+            "extract_counted", "count_prefix", "pyr_down", "linear_memories"]
     if routes.get("maps"):
         need += ["coarse_maps", "map_refine"]
     if not all(launches[n] for n in need) or launches["chain_scores"]:
@@ -2371,7 +2373,7 @@ def _tile_kernels(det, banks, tile: np.ndarray, cap: int, plan,
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
-    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    from shape_based_matching_tpu_torch.ops.cuda.pyramid import pyr_down
     from shape_based_matching_tpu_torch.ops.similarity import (
         _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
     from shape_based_matching_tpu_torch.ops.window import window_origin
@@ -2379,7 +2381,7 @@ def _tile_kernels(det, banks, tile: np.ndarray, cap: int, plan,
     dev = torch.device(DEVICE)
     weak = det.weak_threshold
     full = torch.from_numpy(tile[None]).to(dev)
-    half = pyr_down_u8(full)
+    half = pyr_down(full)
     fe0 = (full, weak, T_LEVELS[0])
     fe1 = (half, weak, T_LEVELS[1])
     fe_err = _max_abs_err([(quant_spread(*a), quant_spread_plain(*a))
@@ -3585,7 +3587,9 @@ def main() -> None:
         map_refine, map_refine_plain)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
-    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
+        linear_memories, linear_memories_plain, pyr_down)
+    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8_plain
     from shape_based_matching_tpu_torch.ops.similarity import (
         _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
     from shape_based_matching_tpu_torch.ops.window import window_origin
@@ -3632,7 +3636,7 @@ def main() -> None:
     noise = np.random.RandomState(7).randint(0, 256, scene.shape,
                                              dtype=np.uint8)
     full = torch.from_numpy(np.stack([scene, noise])).to(dev)
-    half = pyr_down_u8(full)
+    half = pyr_down(full)
     k1_err = 0
     for frames in (full, half):
         for T in (4, 8):
@@ -3641,6 +3645,14 @@ def main() -> None:
                 quant_spread_plain(frames, det.weak_threshold, T))]))
     print(f"K1 frontend vs plain: max_abs_err {k1_err} over 1024^2 and "
           f"512^2, scene + noise, T=4 and T=8")
+    pd_err = _max_abs_err([(half, pyr_down_u8_plain(full))])
+    spreads = [(quant_spread(f, det.weak_threshold, T), T)
+               for f, T in ((full, T_LEVELS[0]), (half, T_LEVELS[1]))]
+    lm_err = _max_abs_err([(linear_memories(sp, T),
+                            linear_memories_plain(sp, T))
+                           for sp, T in spreads])
+    print(f"pyramid.cu vs plain: pyrDown max_abs_err {pd_err} (1024^2, "
+          f"B=2), linear memories {lm_err} (both levels)")
 
     lms = _batch_pyramid(full[:1], det.T_at_level, det.pyramid_levels,
                          det.weak_threshold)
@@ -3674,7 +3686,8 @@ def main() -> None:
     # map route
     re_cap = next(c for c in _CAND_BUCKETS if c >= int(n_above[0]))
     mr = _map_route_check(lms, banks, sizes, thr, re_cap)
-    if k1_err or k2_err or k3_err or mr["maps_err"] or mr["mr_err"]:
+    if (k1_err or k2_err or k3_err or mr["maps_err"] or mr["mr_err"]
+            or pd_err or lm_err):
         raise AssertionError("a kernel disagrees with its plain twin")
 
     # 4. the main path through the kernels
@@ -3683,7 +3696,8 @@ def main() -> None:
                                       n_instances=cfg["n_instances"],
                                       seed=s) for s in seeds])
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, extract_counted, count_prefix, chain_scores)
+               map_refine, extract_counted, count_prefix, pyr_down,
+               linear_memories, chain_scores)
     det.counters.clear()
     (got1, got8), launches = _counted(
         kernels, lambda: (det.match(scene, THRESHOLD),
@@ -3739,13 +3753,29 @@ def main() -> None:
          lambda: map_refine(*mr["mr_args"]),
          lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
          mr["mr_work"]),
+        (pyr_down, "pyramid.cu", "", pd_err, lambda: pyr_down(full[:1]),
+         lambda: pyr_down_u8_plain(full[:1]), "1024^2 B=1",
+         (1024 * 1024 * 5 // 4, 0)),
+        (linear_memories, "pyramid.cu", "", lm_err,
+         lambda: linear_memories(spreads[0][0][:1], T0),
+         lambda: linear_memories_plain(spreads[0][0][:1], T0),
+         "1024^2 T=4 B=1", (1024 * 1024 * (1 + 8) + 65536, 0)),
+        (linear_memories, "pyramid.cu", "", lm_err,
+         lambda: linear_memories(spreads[1][0][:1], T_LEVELS[1]),
+         lambda: linear_memories_plain(spreads[1][0][:1], T_LEVELS[1]),
+         "512^2 T=8 B=1", (512 * 512 * (1 + 8) + 4096, 0)),
     )
+    # port-only kernels: the JAX package computes these in XLA
+    xla = {pyr_down: "shape_based_matching_tpu/ops/filters.py:126",
+           linear_memories: "shape_based_matching_tpu/ops/response.py:147"}
     records = []
     for fn, src, replaces, err, kern, plain, shape, work in table:
         ms = _time_ms(kern, iters)
         plain_ms = _time_ms(plain, iters // 5)
         records.append(_record(fn, src, replaces, err, launches, "flagship",
                                ms, plain_ms, work, shape))
+        if fn in xla:
+            records[-1]["replaces"] = xla[fn]
         print(f"time {fn.__name__} [{shape}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f} ms "
               f"({records[-1]['bound_by']}) on {card}")
@@ -3753,7 +3783,7 @@ def main() -> None:
     # the frontend as match_batch runs it: 8 frames, both levels
     frames8 = torch.from_numpy(batch).to(dev)
     for lvl, (fr8, T_l) in enumerate(((frames8, T0),
-                                      (pyr_down_u8(frames8), T_LEVELS[1]))):
+                                      (pyr_down(frames8), T_LEVELS[1]))):
         args8 = (fr8, det.weak_threshold, T_l)
         err8 = _max_abs_err([(quant_spread(*args8),
                               quant_spread_plain(*args8))])

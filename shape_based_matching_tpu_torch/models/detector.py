@@ -41,14 +41,14 @@ templates, then the map-window kernel), and the window otherwise.
 **Spans and counters.** ``match`` and ``match_batch`` each open one root
 span (``sbm.match`` / ``sbm.match_batch``) over ``sbm.prepare`` (checks,
 the host copy, ``sbm.upload``), ``sbm.pyramid`` (per level
-``sbm.pyramid.down``, ``.frontend``, ``.lm``, ``.tail``), ``sbm.step``
-(``sbm.coarse``, a ``sbm.refine`` a level), ``sbm.download``, a
-``sbm.rerun`` a re-run frame, ``sbm.list`` and ``sbm.sort_dedup``
-(``utils/profiling.span``: no-ops unless a recording or torch.profiler
-runs). ``Detector.counters`` counts on the host, always: frames, steps,
-re-runs, candidates (each listed frame's ``n_above``, already on the
-host), matches returned, refine levels per route, and the bank and
-chain-plan cache misses.
+``sbm.pyramid.down``, ``.frontend``, ``.lm``; ``.down`` and ``.lm``
+carry ``route``), ``sbm.step`` (``sbm.coarse``, a ``sbm.refine`` a
+level), ``sbm.download``, a ``sbm.rerun`` a re-run frame, ``sbm.list``
+and ``sbm.sort_dedup`` (``utils/profiling.span``: no-ops unless a
+recording or torch.profiler runs). ``Detector.counters`` counts on the
+host, always: frames, steps, re-runs, candidates (each listed frame's
+``n_above``, already on the host), matches returned, refine levels per
+route, and the bank and chain-plan cache misses.
 
 Trained templates and match results are bit-identical to the JAX
 package's ``Detector`` (template id, position and float32 similarity of
@@ -76,11 +76,12 @@ import torch.nn.functional as F
 from ..ops.chain_plan import ChainPlan, plan_chain
 from ..ops.cuda.chain import plan_to_device
 from ..ops.cuda.frontend import quant_spread
-from ..ops.filters import erode3_u8, pyr_down_u8, resize_nearest
+from ..ops.cuda.pyramid import linear_memories, pyr_down
+from ..ops.filters import erode3_u8, resize_nearest
 from ..ops.gradients import (quantized_orientations,
                              quantized_orientations_color,
                              quantized_orientations_gray)
-from ..ops.response import build_lm_from_spread, to_i32
+from ..ops.response import to_i32
 from ..ops.similarity import (LevelBank, coarse_extract, coarse_route,
                               refine_by_maps, refine_candidates)
 from ..utils.convert import level_max_dims, pyramids_to_banks
@@ -162,26 +163,27 @@ def _batch_pyramid(sources: torch.Tensor, T: tuple, levels: int,
     of each frame followed by an M-byte zero tail that dead and off-image
     features read (match() preamble, line2Dup.cpp:1084-1120). Each level's
     mask is the nearest resize of the level before's (line2Dup.cpp:439).
+    On the card a level is at most three launches (pyrDown,
+    ``csrc/pyramid.cu``; the frontend; the linear memories with their
+    tail, ``csrc/pyramid.cu``); on the CPU it runs their plain twins. The
+    spans' ``route`` says which ("kernel" / "plain").
     `patch_2843`: weak pixels cast no orientation votes (the frontend's
     opencv_contrib #2843 mode)."""
     flats = []
     src, msk = sources, masks
+    route = "kernel" if sources.device.type == "cuda" else "plain"
     with span("sbm.pyramid", levels=levels):
         for l in range(levels):
             if l > 0:
-                with span("sbm.pyramid.down", level=l):
-                    src = pyr_down_u8(src)
+                with span("sbm.pyramid.down", level=l, route=route):
+                    src = pyr_down(src)
                     if msk is not None:
                         msk = resize_nearest(msk, src.shape[-2:])
             with span("sbm.pyramid.frontend", level=l):
                 spread = quant_spread(src, weak_threshold, T[l], n_ori, msk,
                                       patch_2843=patch_2843)
-            with span("sbm.pyramid.lm", level=l):
-                lm = build_lm_from_spread(spread, T[l], n_ori)
-            with span("sbm.pyramid.tail", level=l):
-                B, M = lm.shape[0], lm.shape[-1]
-                flats.append(torch.cat([lm.reshape(B, -1),
-                                        lm.new_zeros((B, M))], dim=1))
+            with span("sbm.pyramid.lm", level=l, route=route):
+                flats.append(linear_memories(spread, T[l], n_ori))
     return tuple(flats)
 
 
@@ -312,7 +314,7 @@ def _train_levels(src: torch.Tensor, msk: torch.Tensor | None, levels: int,
     out = []
     for l in range(levels):
         if l > 0:
-            src = pyr_down_u8(src)
+            src = pyr_down(src)
             if msk is not None:
                 msk = resize_nearest(msk, src.shape[-2:])
         out.append((_train_level(src, msk, weak_threshold, strong_lo, n_ori,

@@ -79,6 +79,10 @@ SIGNATURES = {
     # (part null when CB is 1)
     "sbm_refine_windows": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # src, dst, planes, H, W, stream
+    "sbm_pyr_down": (_P, _P, _I, _I, _I, _P),
+    # sp, out, B, H, W, T, XC, n_ori, stream
+    "sbm_linear_memories": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -9,8 +9,9 @@ orientation quantization downstream matches the C++ reference
   ``(acc + 2^15) >> 16``.
 * ``sobel3_i32``: cv::Sobel(ksize=3, BORDER_REPLICATE), smooth [1,2,1]
   times diff [-1,0,1], exact in int32.
-* ``pyr_down_u8``: cv::pyrDown, 5-tap [1,4,6,4,1] separable kernel,
-  BORDER_REFLECT_101, ``(acc + 128) >> 8``, even pixels kept.
+* ``pyr_down_u8_plain``: cv::pyrDown, 5-tap [1,4,6,4,1] separable kernel,
+  BORDER_REFLECT_101, ``(acc + 128) >> 8``, even pixels kept (the plain
+  twin of ``ops/cuda/pyramid.pyr_down``, which the pyramid calls).
 * ``resize_nearest``: cv::resize(INTER_NEAREST) of masks down the pyramid.
 * ``erode3_u8``: cv::erode with the default 3x3 kernel, BORDER_REPLICATE
   (training's mask erosion).
@@ -87,7 +88,7 @@ def _pyr_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
-def pyr_down_u8(img: torch.Tensor) -> torch.Tensor:
+def pyr_down_u8_plain(img: torch.Tensor) -> torch.Tensor:
     """cv::pyrDown(img, size/2) on uint8, bit-exact (line2Dup.cpp:433).
 
     Output is (H//2, W//2) on the last two axes, as the reference passes

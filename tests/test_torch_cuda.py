@@ -32,6 +32,9 @@ from shape_based_matching_tpu_torch.ops.cuda.frontend import (
 from shape_based_matching_tpu_torch.ops.fastmath import phase_deg
 from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
     map_refine, map_refine_plain)
+from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
+    linear_memories, linear_memories_plain, pyr_down)
+from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8_plain
 from shape_based_matching_tpu_torch.ops.cuda.refine import (
     refine_windows, refine_windows_plain)
 from shape_based_matching_tpu_torch.ops.response import to_i32
@@ -1333,3 +1336,110 @@ def test_frontend_spread_t2_equals_oracle(dev, mode):
     want = oracle.spread(quant, 2)
     np.testing.assert_array_equal(
         to_i32(got[0]).cpu().numpy().astype(want.dtype), want)
+
+
+_PYR_SIDES = (2, 3, 4, 5, 7, 1023, 1024)
+
+
+@pytest.mark.parametrize("h", _PYR_SIDES)
+@pytest.mark.parametrize("w", _PYR_SIDES)
+def test_pyr_down_kernel_equals_plain(dev, h, w):
+    """pyramid.cu's pyrDown on gray [B, H, W] and planar color [B, 3, H, W]
+    at B = 1 and 8: odd, non-square and tiny sides (BORDER_REFLECT_101 at
+    2 and 3 pixels), one launch a call."""
+    rng = np.random.RandomState(h * 7 + w)
+    for shape in ((1, h, w), (8, h, w), (1, 3, h, w), (8, 3, h, w)):
+        img = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)
+                               ).to(dev)
+        before = pyr_down.launches
+        got = pyr_down(img)
+        torch.cuda.synchronize()
+        assert pyr_down.launches == before + 1
+        assert torch.equal(got, pyr_down_u8_plain(img)), shape
+
+
+def test_pyr_down_kernel_4096_row_tile(dev):
+    """The 4096^2 spatial path's 1760 x 4096 row tile, and a scene."""
+    tile = synthetic.synthetic_scene(1760, 4096,
+                                     synthetic.synthetic_shape_image(256, 0),
+                                     n_instances=3, seed=5)
+    img = torch.from_numpy(tile[None]).to(dev)
+    got = pyr_down(img)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pyr_down_u8_plain(img))
+    assert torch.equal(pyr_down(got), pyr_down_u8_plain(got))
+
+
+def _spread_planes(rng, B, H, W, n_ori, dev):
+    if n_ori == 8:
+        return torch.from_numpy(rng.randint(0, 256, (B, H, W), np.uint8)
+                                ).to(dev)
+    v = rng.randint(0, 1 << 16, (B, H, W)).astype(np.uint16).view(np.int16)
+    return torch.from_numpy(v).to(dev).view(torch.uint16)
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n_ori", [8, 16])
+def test_linear_memories_kernel_equals_plain(dev, T, n_ori):
+    """pyramid.cu's linear memories with the zero tail, byte for byte
+    (the tail preset to garbage by the caching allocator's reuse): the
+    flagship level sizes, rows longer than one block, runs cut by the
+    row's end, rows off 16-byte alignment, B = 1 and 8."""
+    rng = np.random.RandomState(T * 100 + n_ori)
+    sizes = [(1024, 1024), (512, 512), (T * 3, T * 37), (T * 5, T * 260),
+             (T, T), (T * 2, T * 4099 if T <= 2 else T * 261)]
+    for B in (1, 8):
+        for H, W in sizes:
+            sp = _spread_planes(rng, B, H, W, n_ori, dev)
+            torch.full((B * (n_ori * H * W + H * W // (T * T)),), 0xA5,
+                       dtype=torch.uint8, device=dev)  # freed: garbage
+            before = linear_memories.launches
+            got = linear_memories(sp, T, n_ori)
+            torch.cuda.synchronize()
+            assert linear_memories.launches == before + 1
+            assert torch.equal(got, linear_memories_plain(sp, T, n_ori)), (
+                B, H, W)
+
+
+@pytest.mark.parametrize("mode", ["gray8", "color8", "gray16",
+                                  "masked_gray8"])
+def test_batch_pyramid_on_card_equals_cpu(dev, mode):
+    """_batch_pyramid on the flagship frames (1024^2, T = (4, 8)) equals
+    its CPU run, every level's whole flat buffer."""
+    from shape_based_matching_tpu_torch.models.detector import (
+        _batch_pyramid)
+    color, n_ori = mode == "color8", 16 if mode == "gray16" else 8
+    shape = synthetic.synthetic_shape_image(256, 0)
+    gray = np.stack([synthetic.synthetic_scene(1024, 1024, shape,
+                                               n_instances=4, seed=s)
+                     for s in (3, 4)])
+    img = np.stack([gray, np.roll(gray, 1, axis=2), 255 - gray], axis=1) \
+        if color else gray
+    masks = torch.from_numpy(((np.random.RandomState(5).rand(2, 1024, 1024)
+                               > 0.25) * 255).astype(np.uint8)) \
+        if mode == "masked_gray8" else None
+    frames = torch.from_numpy(np.ascontiguousarray(img))
+    want = _batch_pyramid(frames, (4, 8), 2, 30.0, n_ori, masks)
+    got = _batch_pyramid(frames.to(dev), (4, 8), 2, 30.0, n_ori,
+                         None if masks is None else masks.to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_batch_pyramid_is_three_launches_a_level(dev):
+    """On the card a 1024^2 two-level pyramid queues 5 device operations
+    (level 0: the frontend and the linear memories; level 1: pyrDown too),
+    none of them a torch kernel, from the host-side launch records."""
+    from shape_based_matching_tpu_torch.models.detector import (
+        _batch_pyramid)
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+    frames = torch.from_numpy(synthetic.synthetic_scene(
+        1024, 1024, synthetic.synthetic_shape_image(256, 0), n_instances=4,
+        seed=3)[None]).to(dev)
+    queued, kern = device_work(
+        lambda: _batch_pyramid(frames, (4, 8), 2, 30.0))
+    assert queued == 5 * CALLS
+    names = [n for n, _ in kern]
+    ours = ("pyr_down_kernel", "lm_kernel", "quant_spread_kernel")
+    assert names and all(any(k in n for k in ours) for n in names), names

@@ -80,13 +80,13 @@ def test_filters_equal_jax(h, w):
             filters.sobel3_i32(blur, dx).numpy(),
             np.asarray(jfl.sobel3_i32(jnp.asarray(blur.numpy()), dx)))
     np.testing.assert_array_equal(
-        filters.pyr_down_u8(t).numpy(),
+        filters.pyr_down_u8_plain(t).numpy(),
         np.asarray(jfl.pyr_down_u8(jnp.asarray(img))))
 
 
 def test_filters_batched_equal_per_frame():
     imgs = torch.from_numpy(_frames(3, 40, 56, n=3))
-    for fn in (filters.gaussian_blur7_u8, filters.pyr_down_u8):
+    for fn in (filters.gaussian_blur7_u8, filters.pyr_down_u8_plain):
         got = fn(imgs)
         for b in range(3):
             assert torch.equal(got[b], fn(imgs[b]))
@@ -237,7 +237,7 @@ def test_resize_nearest_equals_jax_in_float32():
 def test_pyr_down_planar_color_equals_jax():
     img = np.random.RandomState(6).randint(0, 256, (40, 54, 3),
                                            dtype=np.uint8)
-    got = filters.pyr_down_u8(_planar(img)[0]).permute(1, 2, 0)
+    got = filters.pyr_down_u8_plain(_planar(img)[0]).permute(1, 2, 0)
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jfl.pyr_down_u8(jnp.asarray(img))))
 

@@ -375,8 +375,9 @@ def test_filters_equal_copy(color):
         np.testing.assert_array_equal(
             _hwc(filters.sobel3_i32(_planar(img), dx)).astype(np.int64),
             oracle.sobel3(img, dx))
-    np.testing.assert_array_equal(_hwc(filters.pyr_down_u8(_planar(img))),
-                                  oracle.pyr_down_u8(img))
+    np.testing.assert_array_equal(
+        _hwc(filters.pyr_down_u8_plain(_planar(img))),
+        oracle.pyr_down_u8(img))
     m = (rng.randint(0, 2, (33, 47)) * 255).astype(np.uint8)
     for hw in ((16, 23), (8, 11), (33, 47), (17, 24), (4, 6)):
         np.testing.assert_array_equal(

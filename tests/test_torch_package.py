@@ -25,6 +25,8 @@ from shape_based_matching_tpu_torch.ops.cuda.coarse import (
 from shape_based_matching_tpu_torch.ops.cuda.extract import extract_counted
 from shape_based_matching_tpu_torch.ops.cuda.frontend import quant_spread
 from shape_based_matching_tpu_torch.ops.cuda.map_refine import map_refine
+from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
+    linear_memories, pyr_down)
 from shape_based_matching_tpu_torch.ops.cuda.refine import refine_windows
 from shape_based_matching_tpu_torch.utils import synthetic
 
@@ -123,7 +125,8 @@ def test_oracle_copy_is_the_jax_oracle():
 
 def test_cpu_tensors_launch_no_kernel():
     kernels = (quant_spread, coarse_scores, refine_windows, chain_scores,
-               coarse_maps, map_refine, extract_counted)
+               coarse_maps, map_refine, extract_counted, pyr_down,
+               linear_memories)
     before = [fn.launches for fn in kernels]
     det = Detector(num_features=63, T=(4, 8), device="cpu")
     det.class_templates["c"] = synthetic.load_bank_cache(
@@ -155,6 +158,10 @@ def test_wrappers_reject_other_devices():
         quant_spread(frames, 30.0, 4)
     with pytest.raises(ValueError):
         quant_spread(torch.zeros((1, 32, 32), dtype=torch.int32), 30.0, 4)
+    with pytest.raises(ValueError):
+        pyr_down(frames)
+    with pytest.raises(ValueError):
+        linear_memories(frames, 4)
     meta = {"device": "meta", "dtype": torch.int32}
     with pytest.raises(ValueError):
         extract_counted(torch.zeros((1, 3, 16), **meta),
@@ -182,7 +189,7 @@ def test_library_name_follows_sources():
     assert path == build.library_path()
     assert sorted(os.path.basename(s) for s in build._sources()) == [
         "argmax.cuh", "chain.cu", "coarse.cu", "extract.cu", "frontend.cu",
-        "lmword.cuh", "map_refine.cu", "refine.cu"]
+        "lmword.cuh", "map_refine.cu", "pyramid.cu", "refine.cu"]
 
 
 def test_host_helper_build_failure_raises(monkeypatch, tmp_path):

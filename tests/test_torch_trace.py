@@ -56,11 +56,9 @@ STEP = [("sbm.step", "sbm.match_batch"), ("sbm.coarse", "sbm.step"),
 PYRAMID = [("sbm.pyramid", "sbm.match_batch"),
            ("sbm.pyramid.frontend", "sbm.pyramid"),
            ("sbm.pyramid.lm", "sbm.pyramid"),
-           ("sbm.pyramid.tail", "sbm.pyramid"),
            ("sbm.pyramid.down", "sbm.pyramid"),
            ("sbm.pyramid.frontend", "sbm.pyramid"),
-           ("sbm.pyramid.lm", "sbm.pyramid"),
-           ("sbm.pyramid.tail", "sbm.pyramid")]
+           ("sbm.pyramid.lm", "sbm.pyramid")]
 
 
 def test_nothing_recorded_while_off(case):
@@ -89,6 +87,11 @@ def test_b1_match_span_tree(case):
     assert s[2].attrs == {"bytes": frames[0].nbytes}
     assert all(p.start_ns <= c.start_ns <= c.end_ns <= p.end_ns
                for c in s[1:] for p in [s[c.parent]])
+    # the pyramid's route: the plain twins on the CPU
+    assert [x.attrs for x in s if x.name in ("sbm.pyramid.down",
+                                             "sbm.pyramid.lm")] == [
+        {"level": 0, "route": "plain"}, {"level": 1, "route": "plain"},
+        {"level": 1, "route": "plain"}]
     step = next(x for x in s if x.name == "sbm.step")
     assert step.attrs == {"cap": 256, "rerun": False}
     refine = next(x for x in s if x.name == "sbm.refine")

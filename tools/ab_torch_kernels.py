@@ -1,12 +1,22 @@
-"""Time the port's frontend, chain, extraction and map refine steps of one
-checkout on one GPU.
+"""Time the port's pyramid, frontend, chain, extraction and map refine
+steps of one checkout on one GPU; or the pyramid and the match of two
+checkouts in one process.
 
     python tools/ab_torch_kernels.py [--root DIR] [--iters 200] [--out FILE]
+    python tools/ab_torch_kernels.py --against PARENT [--root DIR]
+        [--iters 300] [--out FILE]
 
 Imports ``shape_based_matching_tpu_torch`` from DIR (default: this
 repository), builds its kernels, and times, with CUDA events (mean of
 `iters` queued launches after 20 warm ones), each kernel held bitwise
 against its plain twin first:
+
+* ``_batch_pyramid`` on the flagship frames (1024^2, T = (4, 8), gray 8
+  orientations) at B=1 and B=8, held to its CPU run, with its device
+  kernels a call and their device time; where the checkout has
+  ``csrc/pyramid.cu``, its ``pyr_down`` (1024^2 at B=1 and B=8) and
+  ``linear_memories`` (1024^2 at T=4 and 512^2 at T=8, B=1 and B=8), each
+  held to its twin;
 
 * ``quant_spread`` (frontend.cu) on the flagship frames: 1024^2 at T=4 and
   their 512^2 pyrDown at T=8, gray 8 orientations at B=1 and B=8, and
@@ -44,6 +54,18 @@ The inputs come from fixed seeds and the committed bank, so two checkouts
 (for a comparison, run the parent's and this one's in turns, in one chip
 call) time the same work. Prints one JSON object and writes it to FILE
 when given.
+
+With ``--against PARENT`` the tool instead loads the package of the
+checkout at PARENT under another name (a copy in ``build/abpkg/``) beside
+DIR's, gives both the same banks, and calls them interleaved one by one
+(which side goes first alternates), so the host's drifts in speed fall
+on both alike: ``_batch_pyramid`` at B=1 and B=8 (a call and its
+device work, on the host clock), ``Detector.match`` of one host frame
+with the 1000-template banks of 63 and 128 features at threshold 90, and
+``match_batch`` of 8 frames. It prints each side's median and quartiles
+of `iters` calls, the ratio of the medians and the median and quartiles
+of the per-round ratios, after checking that both sides give the same
+buffers and lists.
 """
 
 from __future__ import annotations
@@ -53,6 +75,7 @@ import importlib.util
 import inspect
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -221,16 +244,138 @@ def _same(got, want) -> bool:
                for g, e in pairs)
 
 
+def _scenes(synthetic, n: int = 8) -> np.ndarray:
+    """The flagship frames: n 1024^2 scenes of the star, 4 instances."""
+    shape = synthetic.synthetic_shape_image(256, 0)
+    return np.stack([synthetic.synthetic_scene(1024, 1024, shape,
+                                               n_instances=4, seed=3 + i)
+                     for i in range(n)])
+
+
+def _quartiles(xs: list) -> dict:
+    q = statistics.quantiles(xs, n=4)
+    return {"median": q[1], "q1": q[0], "q3": q[2]}
+
+
+def _against(args, root: str) -> dict:
+    """Parent (the checkout at --against, its package copied under the
+    name sbm_parent) against the checkout at `root` in one process, calls
+    interleaved one by one."""
+    import shutil
+
+    parent_root = os.path.abspath(args.against)
+    dst = os.path.join(REPO, "build", "abpkg")
+    if os.path.isdir(os.path.join(dst, "sbm_parent")):
+        shutil.rmtree(os.path.join(dst, "sbm_parent"))
+    shutil.copytree(os.path.join(parent_root,
+                                 "shape_based_matching_tpu_torch"),
+                    os.path.join(dst, "sbm_parent"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    sys.path.insert(1, dst)
+    import sbm_parent
+    import shape_based_matching_tpu_torch as change
+
+    sides = (sbm_parent, change)
+    mods = {}
+    for pkg in sides:
+        name = pkg.__name__
+        __import__(f"{name}.ops.cuda.build", fromlist=["x"]).library()
+        mods[name] = (__import__(f"{name}.models.detector", fromlist=["x"]),
+                      __import__(f"{name}.utils.synthetic", fromlist=["x"]))
+    dev = torch.device("cuda")
+    scenes = _scenes(mods["shape_based_matching_tpu_torch"][1])
+    frames = torch.from_numpy(scenes).to(dev)
+
+    def detector(pkg, n_features):
+        det_mod, syn = mods[pkg.__name__]
+        det = pkg.Detector(num_features=n_features, T=(4, 8), device=dev)
+        det.class_templates["c"] = syn.load_bank_cache(os.path.join(
+            root, "bench_banks", os.path.basename(
+                syn.bank_cache_path(1000, n_features))))
+        return det
+
+    dets = {nf: [detector(pkg, nf) for pkg in sides] for nf in (63, 128)}
+
+    def keys(lists):
+        return [[(m.template_id, m.x, m.y, m.similarity) for m in ms]
+                for ms in lists]
+
+    i = [0]
+
+    def frame():  # the next host frame, the same on both sides of a round
+        return scenes[i[0] % len(scenes)]
+
+    cases = []
+    for B in (1, 8):
+        cases.append((f"_batch_pyramid gray8 1024^2 B={B}", [
+            lambda m=mods[p.__name__][0], B=B: m._batch_pyramid(
+                frames[:B], (4, 8), 2, 30.0) for p in sides],
+            lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))))
+    for nf in (63, 128):
+        cases.append((f"Detector.match rot1000x{nf} thr 90 B=1", [
+            lambda d=d: d.match(frame(), 90.0) for d in dets[nf]],
+            lambda a, b: keys([a]) == keys([b])))
+    cases.append(("Detector.match_batch rot1000x63 thr 90 B=8", [
+        lambda d=d: d.match_batch(scenes, 90.0) for d in dets[63]],
+        lambda a, b: keys(a) == keys(b)))
+    out = []
+    for name, fns, same in cases:
+        for _ in range(20):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+        identical = True
+        times = ([], [])
+        for r in range(args.iters):
+            i[0] = r
+            got = [None, None]
+            for w in ((0, 1) if r % 2 else (1, 0)):
+                t = time.perf_counter()
+                got[w] = fns[w]()
+                torch.cuda.synchronize()
+                times[w].append((time.perf_counter() - t) * 1e3)
+            identical &= bool(same(*got))
+        ratios = [c / p for p, c in zip(*times)]
+        row = {"case": name, "calls": args.iters, "identical": identical,
+               "parent_ms": _quartiles(times[0]),
+               "change_ms": _quartiles(times[1]),
+               "change_over_parent_of_medians":
+                   statistics.median(times[1]) / statistics.median(times[0]),
+               "change_over_parent_per_round": _quartiles(ratios)}
+        out.append(row)
+        print(f"{name}: parent {row['parent_ms']['median']:.4f} ms "
+              f"({row['parent_ms']['q1']:.4f}-{row['parent_ms']['q3']:.4f}),"
+              f" change {row['change_ms']['median']:.4f} ms "
+              f"({row['change_ms']['q1']:.4f}-{row['change_ms']['q3']:.4f});"
+              f" change/parent {row['change_over_parent_of_medians']:.4f}, "
+              f"identical {identical}")
+    return {"parent": parent_root, "rows": out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--against", help="a parent checkout: time it against "
+                    "--root's in one process, calls interleaved")
     ap.add_argument("--out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_torch_kernels: CUDA is not available")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    if args.against:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+        out = {"root": root, "card": smi, **_against(args, root)}
+        print(json.dumps(out))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        if not all(r["identical"] for r in out["rows"]):
+            raise SystemExit("the two checkouts disagree")
+        return
     import shape_based_matching_tpu_torch as pkg
     from shape_based_matching_tpu_torch.models.detector import (
         _batch_pyramid)
@@ -240,7 +385,11 @@ def main() -> None:
         chain_scores, chain_scores_plain, plan_to_device)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
-    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    try:
+        from shape_based_matching_tpu_torch.ops.cuda.pyramid import pyr_down
+    except ImportError:  # a checkout from before csrc/pyramid.cu
+        from shape_based_matching_tpu_torch.ops.filters import (
+            pyr_down_u8 as pyr_down)
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_scores)
@@ -261,11 +410,8 @@ def main() -> None:
                          text=True, timeout=60).stdout.strip()
     build.library()
     dev = torch.device("cuda")
-    shape = synthetic.synthetic_shape_image(256, 0)
-    frames = torch.from_numpy(np.stack([synthetic.synthetic_scene(
-        1024, 1024, shape, n_instances=4, seed=3 + i) for i in range(8)])
-    ).to(dev)
-    half = pyr_down_u8(frames)
+    frames = torch.from_numpy(_scenes(synthetic)).to(dev)
+    half = pyr_down(frames)
     color = torch.stack([frames[:1], frames[:1].roll(1, -1),
                          255 - frames[:1]], dim=1).contiguous()
     rows = []
@@ -287,6 +433,30 @@ def main() -> None:
                       f"{rows[-1]['entry_ms']:.4f} of it in {entry}")
         print(f"{kernel} {name}: {ms:.4f} ms, bitwise {same}{extra}")
 
+    for B in (1, 8):
+        run("_batch_pyramid", f"gray8 1024^2 T=(4, 8) B={B}",
+            lambda B=B: _batch_pyramid(frames[:B], (4, 8), 2, 30.0),
+            lambda B=B: tuple(t.to(dev) for t in _batch_pyramid(
+                frames[:B].cpu(), (4, 8), 2, 30.0)), device=True)
+    try:
+        from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
+            linear_memories, linear_memories_plain)
+        from shape_based_matching_tpu_torch.ops.filters import (
+            pyr_down_u8_plain)
+    except ImportError:  # a checkout from before csrc/pyramid.cu
+        linear_memories = None
+    if linear_memories is not None:
+        for B in (1, 8):
+            run("pyramid.cu pyr_down", f"1024^2 B={B}",
+                lambda B=B: pyr_down(frames[:B]),
+                lambda B=B: pyr_down_u8_plain(frames[:B]), device=True)
+        for side, imgs, T in (("1024^2", frames, 4), ("512^2", half, 8)):
+            sp = quant_spread(imgs, 30.0, T)
+            for B in (1, 8):
+                run("pyramid.cu linear_memories", f"{side} T={T} B={B}",
+                    lambda sp=sp[:B], T=T: linear_memories(sp, T),
+                    lambda sp=sp[:B], T=T: linear_memories_plain(sp, T),
+                    device=True)
     for name, imgs, T in (("gray8 1024^2 T=4 B=1", frames[:1], 4),
                           ("color8 1024^2 T=4 B=1", color, 4),
                           ("gray8 1024^2 T=4 B=8", frames, 4),

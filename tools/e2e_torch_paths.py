@@ -34,7 +34,11 @@ def main() -> None:
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread)
-    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    try:
+        from shape_based_matching_tpu_torch.ops.cuda.pyramid import pyr_down
+    except ImportError:  # a checkout from before csrc/pyramid.cu
+        from shape_based_matching_tpu_torch.ops.filters import (
+            pyr_down_u8 as pyr_down)
 
     out = {}
     for name in sys.argv[2:]:
@@ -55,7 +59,7 @@ def main() -> None:
         0, 256, (1, 1024, 1024), dtype=np.uint8)).cuda()
     color = torch.stack([g, g.roll(1, -1), 255 - g], 1).contiguous()
     for name, x, T in (("color_frontend_1024", color, 4),
-                       ("color_frontend_512", pyr_down_u8(color), 8)):
+                       ("color_frontend_512", pyr_down(color), 8)):
         out[name] = round(cs._time_ms(lambda: quant_spread(x, 30.0, T), 200),
                           4)
     print(os.path.basename(root), json.dumps(out), flush=True)

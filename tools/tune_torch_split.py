@@ -152,7 +152,7 @@ def _tune_frontend(cs, card: str, iters: int) -> list:
     """frontend.cu's rows per block at the flagship's level sizes, B=1
     and B=8, gray and color."""
     from shape_based_matching_tpu_torch.ops.cuda import frontend
-    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8
+    from shape_based_matching_tpu_torch.ops.cuda.pyramid import pyr_down
 
     own_split = frontend.frontend_split
     cfg = json.load(open(cs.GOLDEN))["config"]
@@ -163,7 +163,7 @@ def _tune_frontend(cs, card: str, iters: int) -> list:
                         dim=1).contiguous()
     rows = []
     for name, imgs, T in (("gray8 1024^2 T=4", full, 4),
-                          ("gray8 512^2 T=8", pyr_down_u8(full), 8),
+                          ("gray8 512^2 T=8", pyr_down(full), 8),
                           ("color8 1024^2 T=4", color, 4)):
         for B in ((1, cs.BATCH) if imgs.shape[0] > 1 else (1,)):
             x = imgs[:B]
