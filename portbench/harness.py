@@ -20,7 +20,10 @@ lists back on the host, and the next call starts when it returns.
 After the window, the program's state is dropped and the reference
 (``portbench/reference/``) trains its own bank from the same image and
 matches the sampled pool frames; every answer the window gave for those
-frames is compared with it.
+frames is compared with it. A ``match_icp`` mix's answers are the
+refined candidates: their keys are compared as a match list's are, and
+their poses with ``reference/icp.py``'s, field by field within
+``POSE_TOL``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,22 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "shape_based_matching_tpu")
 CLASS_ID = "bench"
 # seconds of whole untraced passes before a traced one (--trace 1)
 UNTRACED_S = 2.0
+APIS = ("match", "match_batch", "match_icp")
+# what a match_icp mix passes to the call besides the frame and threshold
+ICP_ARGS = ("top_c", "iters", "radius", "cand_cap")
+POSE_FIELDS = ("dtheta_deg", "dscale", "tx", "ty")
+# A refined candidate's pose matches the reference's where each of
+# |d dtheta_deg|, |d dscale|, |d tx| and |d ty| is under its tolerance
+# and the valid flags are equal: the repository's tolerances for float32
+# results that differ only in the order of their sums (its tests of the
+# port against the JAX package, tests/test_torch_icp.py). The inlier
+# counts are compared exactly besides.
+POSE_TOL = {"dtheta_deg": 1e-3, "dscale": 1e-4, "tx": 1e-2, "ty": 1e-2}
+# the widest gap of each field over the candidates compared, reported
+# beside the counts (a NaN on one side reads NO_NUMBER)
+POSE_GAPS = ("pose_gap_deg", "pose_gap_scale", "pose_gap_px")
+# a gap that is no number (a NaN on one side)
+NO_NUMBER = 1e30
 
 
 def forbidden_modules() -> list[str]:
@@ -94,18 +113,20 @@ def load_reader(root: str, name: str):
 
 class Client:
     """The station's driver: call i hands the API the pool frames
-    ``frames_of(i)`` and returns (their pool indices, one match list
-    each)."""
+    ``frames_of(i)`` and returns (their pool indices, one answer each: a
+    match list, or ``match_icp``'s refined candidates)."""
 
     def __init__(self, det, traffic: dict, pool: np.ndarray,
                  threshold: float):
         self.det, self.pool, self.threshold = det, pool, threshold
         self.api = traffic["api"]
         self.batch = int(traffic.get("batch", 1))
-        if self.api not in ("match", "match_batch"):
+        if self.api not in APIS:
             raise ValueError(f"unknown api {self.api!r}")
-        if self.api == "match" and self.batch != 1:
-            raise ValueError("api 'match' takes one frame a call")
+        if self.api != "match_batch" and self.batch != 1:
+            raise ValueError(f"api {self.api!r} takes one frame a call")
+        self.icp = ({a: int(traffic[a]) for a in ICP_ARGS}
+                    if self.api == "match_icp" else None)
         self.calls_per_pass = len(pool) // self.batch
 
     def frames_of(self, i: int) -> range:
@@ -117,8 +138,15 @@ class Client:
         if self.api == "match":
             return idx, [self.det.match(self.pool[idx.start],
                                         self.threshold)]
+        if self.api == "match_icp":
+            return idx, [self.det.match_icp(self.pool[idx.start],
+                                            self.threshold, **self.icp)]
         return idx, self.det.match_batch(self.pool[idx.start:idx.stop],
                                          self.threshold)
+
+    def rows(self, answer) -> np.ndarray:
+        """One answer as the int64 rows the window keeps."""
+        return icp_rows(answer) if self.icp else answer_rows(answer)
 
     def api_span(self) -> tuple:
         """(owner, attribute, span name) of the API entry, for tracing."""
@@ -157,7 +185,7 @@ class WindowLog:
                 if pos in self.sample:
                     self.due[pos] += 1
                     if answers is not None:
-                        self.kept[pos].append(answer_rows(answers[j]))
+                        self.kept[pos].append(client.rows(answers[j]))
             if answers is None:
                 self.failed += len(idx)
             i += 1
@@ -206,6 +234,26 @@ def answer_rows(matches) -> np.ndarray:
                      sims.view(np.int32).astype(np.int64)], axis=1)
 
 
+def icp_rows(results) -> np.ndarray:
+    """``match_icp``'s refined candidates as int64 rows: their matches'
+    ``answer_rows``, then the float32 bits of dtheta_deg, dscale, tx and
+    ty, then inliers and valid."""
+    ids = answer_rows([r["match"] for r in results])
+    pose = np.array([[r[f] for f in POSE_FIELDS] for r in results],
+                    np.float32).reshape(-1, len(POSE_FIELDS))
+    rest = np.array([[r["inliers"], r["valid"]] for r in results],
+                    np.int64).reshape(-1, 2)
+    return np.concatenate([ids, pose.view(np.int32).astype(np.int64), rest],
+                          axis=1)
+
+
+def pose_rows(poses: dict) -> np.ndarray:
+    """``reference/icp.match_icp_frame``'s {key: pose} as ``icp_rows``."""
+    rows = [list(k) + [int(np.float32(v).view(np.int32)) for v in p[:4]]
+            + [int(p[4]), int(p[5])] for k, p in poses.items()]
+    return np.array(rows, np.int64).reshape(-1, 10)
+
+
 def answer_set(rows: np.ndarray) -> tuple:
     """Kept rows as a set of tuples, and how many rows repeat one
     already in it."""
@@ -226,6 +274,71 @@ def compare(kept: dict, due: dict, reference: dict) -> dict:
             checked += 1
     return {"list_mismatch": mismatch, "lists_checked": checked,
             "lists_missing": missing}
+
+
+def _gap(a: float, b: float) -> float:
+    if a == b:
+        return 0.0
+    d = abs(a - b)
+    return d if math.isfinite(d) else NO_NUMBER
+
+
+def compare_poses(kept: dict, reference: dict) -> dict:
+    """From the ``icp_rows`` kept per pool frame and the reference's {key:
+    pose} per pool frame, over every kept candidate whose key the
+    reference has (a key on one side only is ``compare``'s): the
+    candidates (a pool frame's key counted once) whose pose is past
+    ``POSE_TOL`` or whose valid flag differs (``pose_mismatch``), those
+    whose inlier count differs (``inliers_mismatch``), the candidates
+    compared (``poses_checked``), and the widest gaps (``POSE_GAPS``)."""
+    out = dict.fromkeys(("pose_mismatch", "inliers_mismatch",
+                         "poses_checked") + POSE_GAPS, 0)
+    tol = [POSE_TOL[f] for f in POSE_FIELDS]
+    bad_pose, bad_inliers = set(), set()
+    for pos, want in reference.items():
+        for rows in kept.get(pos, []):
+            pose = rows[:, 4:8].astype(np.int32).view(np.float32)
+            for key, p, n, v in zip(map(tuple, rows[:, :4].tolist()),
+                                    pose.astype(np.float64).tolist(),
+                                    rows[:, 8].tolist(), rows[:, 9].tolist()):
+                w = want.get(key)
+                if w is None:
+                    continue
+                out["poses_checked"] += 1
+                gaps = [_gap(a, b) for a, b in zip(p, w[:4])]
+                out["pose_gap_deg"] = max(out["pose_gap_deg"], gaps[0])
+                out["pose_gap_scale"] = max(out["pose_gap_scale"], gaps[1])
+                out["pose_gap_px"] = max(out["pose_gap_px"], *gaps[2:])
+                if (any(g >= t for g, t in zip(gaps, tol))
+                        or bool(v) != w[5]):
+                    bad_pose.add((pos, key))
+                if n != w[4]:
+                    bad_inliers.add((pos, key))
+    out["pose_mismatch"] = len(bad_pose)
+    out["inliers_mismatch"] = len(bad_inliers)
+    return out
+
+
+def verdict(cmp: dict, failed: int, bank_mismatch: int) -> tuple:
+    """(checks, correct) of a run or of the control: each number compared
+    with its limit, from ``compare`` or ``compare_icp``'s readings, the
+    failed frames and the bank's mismatch; ``correct`` where every number
+    keeps its limit."""
+    checks = {
+        "bank_mismatch": {"value": bank_mismatch, "limit": 0},
+        "list_mismatch": {"value": cmp["list_mismatch"], "limit": 0},
+        "lists_missing": {"value": cmp["lists_missing"], "limit": 0},
+        "failed_frames": {"value": failed, "limit": 0},
+    }
+    if "pose_mismatch" in cmp:
+        for name in ("pose_mismatch", "inliers_mismatch"):
+            checks[name] = {"value": cmp[name], "limit": 0}
+        checks["poses_checked"] = {"value": cmp["poses_checked"],
+                                   "at_least": 1}
+    checks["lists_checked"] = {"value": cmp["lists_checked"], "at_least": 1}
+    correct = all(c["value"] <= c["limit"] if "limit" in c
+                  else c["value"] >= c["at_least"] for c in checks.values())
+    return checks, correct
 
 
 def reference_bank(config: dict, shape: np.ndarray, device,
@@ -265,6 +378,38 @@ def reference_sets(config: dict, banks: list, pool: np.ndarray, positions,
             float(config["weak_threshold"]),
             float(config["match_threshold"]), score_dtype or torch.float32)
     return sets
+
+
+def reference_poses(config: dict, traffic: dict, banks: list,
+                    pool: np.ndarray, positions, device, score_dtype=None,
+                    pose_dtype=None) -> dict:
+    """The reference's ``match_icp`` answer, {key: pose}, for each pool
+    frame in `positions`."""
+    import torch
+
+    from .reference import icp
+
+    out = {}
+    for pos in positions:
+        f = torch.from_numpy(np.ascontiguousarray(pool[pos])).to(device)
+        out[pos] = icp.match_icp_frame(
+            f, banks, tuple(int(t) for t in config["T"]),
+            float(config["weak_threshold"]),
+            float(config["match_threshold"]),
+            *(int(traffic[a]) for a in ICP_ARGS),
+            score_dtype=score_dtype or torch.float32,
+            pose_dtype=pose_dtype or torch.float32)
+    return out
+
+
+def compare_icp(kept: dict, due: dict, reference: dict) -> dict:
+    """``compare`` of the answers' keys and ``compare_poses`` of their
+    poses, against the reference's {key: pose} per pool frame."""
+    out = compare({pos: [rows[:, :4] for rows in answers]
+                   for pos, answers in kept.items()}, due,
+                  {pos: set(p) for pos, p in reference.items()})
+    out.update(compare_poses(kept, reference))
+    return out
 
 
 def load_libraries(on_card: bool) -> bool:
@@ -401,6 +546,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
 
     # --- correctness -----------------------------------------------------
     got_bank = port_fingerprint(det)
+    icp = client.icp is not None
     del client, det
     gc.unfreeze()
     gc.collect()
@@ -408,21 +554,21 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     want_bank, banks = reference_bank(config, shape, device)
-    sets = reference_sets(config, banks, pool, sorted(win.due), device)
+    if icp:
+        want = reference_poses(config, traffic, banks, pool, sorted(win.due),
+                               device)
+        cmp = compare_icp(win.kept, win.due, want)
+    else:
+        want = reference_sets(config, banks, pool, sorted(win.due), device)
+        cmp = compare(win.kept, win.due, want)
     bank_mismatch = bank_difference(got_bank, want_bank)
-    cmp = compare(win.kept, win.due, sets)
     print(f"reference: {time.perf_counter() - t_ref:.3f} s for the bank and "
-          f"{len(sets)} frames", file=sys.stderr)
-    checks = {
-        "bank_mismatch": {"value": bank_mismatch, "limit": 0},
-        "list_mismatch": {"value": cmp["list_mismatch"], "limit": 0},
-        "lists_missing": {"value": cmp["lists_missing"], "limit": 0},
-        "failed_frames": {"value": win.failed, "limit": 0},
-        "lists_checked": {"value": cmp["lists_checked"], "at_least": 1},
-    }
-    correct = (all(c["value"] <= c["limit"] for c in checks.values()
-                   if "limit" in c)
-               and cmp["lists_checked"] >= 1)
+          f"{len(want)} frames", file=sys.stderr)
+    checks, correct = verdict(cmp, win.failed, bank_mismatch)
+    if icp:
+        print("pose gaps (widest; tolerances " + ", ".join(
+            f"{f} {t:g}" for f, t in POSE_TOL.items()) + "): " + ", ".join(
+            f"{n} {cmp[n]!r}" for n in POSE_GAPS), file=sys.stderr)
     out = {"correct": correct, "attempted": win.frames, "failed": win.failed,
            "metrics": metrics, "device": dev}
     if trace:
@@ -430,5 +576,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         out["tracing"] = tracing
     out["setup"] = {"built": built, "setup_s": setup_s,
                     "build_s": phases[1][1] - phases[0][1]}
+    if icp:
+        out["pose_gaps"] = {n: cmp[n] for n in POSE_GAPS}
     out["checks"] = checks
     return out

@@ -79,3 +79,31 @@ def refine_work(n_live: int, window_features: int, n_features: int,
     n_bytes = (bank_bytes(n_features, n_templates)
                + 2 * CANDIDATE_BYTES * n_live)
     return n_bytes, WINDOW_CELLS * window_features
+
+
+ICP_RESULT_FIELDS = 13  # float32 fields of a refined candidate's result
+# A live point's share of one ICP step that every route must do, whatever
+# the point's fate: its transform (4 multiplies, 4 adds) and its residual
+# to its edge with the radius test (the edge point 2 adds, the difference
+# 2, its squared length 3). An inlier's plane row and its terms of the
+# normal equations are not counted: an outlier needs none, and the steps'
+# inlier counts are not recorded.
+ICP_POINT_OPS = 15
+
+
+def icp_field_bytes(frame_shape) -> int:
+    """``edge_nearest_field``: the gray frame read once (its edge planes
+    and the flood's seeds are intermediates)."""
+    n = 1
+    for d in frame_shape:
+        n *= int(d)
+    return n
+
+
+def icp_refine_work(points: int, iters: int, top_c: int) -> tuple:
+    """``refine_packed_candidates`` over candidates whose templates hold
+    `points` live level-0 points: (bytes, operations). Bytes: those
+    points read once and the 13 x `top_c` float32 result written once.
+    Operations: ``ICP_POINT_OPS`` a live point and step."""
+    return (FEATURE_BYTES * points + 4 * ICP_RESULT_FIELDS * top_c,
+            iters * points * ICP_POINT_OPS)

@@ -319,6 +319,24 @@ def refine_level(lm: torch.Tensor, size_wh, T: int, bank: Bank,
                  for v in out)
 
 
+def candidate_row(frame: torch.Tensor, banks: list, T_at_level,
+                  weak_threshold: float, threshold: float,
+                  score_dtype=torch.float32) -> tuple:
+    """The survivors of one gray uint8 [H, W] frame against the banks (one
+    Bank a level, finest first): (k, x, y, float32 score) in coarse
+    (template, cell row-major) order, refined down the pyramid, and the
+    number of coarse candidates."""
+    lms, sizes = lm_pyramid(frame, T_at_level, weak_threshold)
+    k, x, y = coarse_candidates(lms[-1], sizes[-1], T_at_level[-1],
+                                banks[-1], threshold, score_dtype)
+    n_coarse = int(k.numel())
+    sc = None
+    for l in range(len(T_at_level) - 2, -1, -1):
+        k, x, y, sc = refine_level(lms[l], sizes[l], T_at_level[l], banks[l],
+                                   k, x, y, threshold, score_dtype)
+    return k, x, y, sc.to(torch.float32), n_coarse
+
+
 def match_frame(frame: torch.Tensor, banks: list, T_at_level,
                 weak_threshold: float, threshold: float,
                 score_dtype=torch.float32) -> set:
@@ -326,14 +344,8 @@ def match_frame(frame: torch.Tensor, banks: list, T_at_level,
     (one Bank a level, finest first) as a set of (template_id, x, y,
     float32 score bits); duplicates (one template refined to one place
     from two coarse candidates) collapse, as the port's list does."""
-    lms, sizes = lm_pyramid(frame, T_at_level, weak_threshold)
-    levels = len(T_at_level)
-    k, x, y = coarse_candidates(lms[-1], sizes[-1], T_at_level[-1],
-                                banks[-1], threshold, score_dtype)
-    sc = None
-    for l in range(levels - 2, -1, -1):
-        k, x, y, sc = refine_level(lms[l], sizes[l], T_at_level[l], banks[l],
-                                   k, x, y, threshold, score_dtype)
-    bits = sc.to(torch.float32).contiguous().view(torch.int32)
+    k, x, y, sc, _ = candidate_row(frame, banks, T_at_level, weak_threshold,
+                                   threshold, score_dtype)
+    bits = sc.contiguous().view(torch.int32)
     rows = torch.stack([k, x, y, bits.to(torch.int64)], 1).cpu().tolist()
     return {tuple(r) for r in rows}

@@ -29,11 +29,15 @@ TINY_TRAFFIC = {
            "noise_amplitude": 25, "check_frames": 4},
     "b2": {"api": "match_batch", "batch": 2, "pool": 4,
            "instances": [2, 3], "noise_amplitude": 25, "check_frames": 4},
+    "icp": {"api": "match_icp", "batch": 1, "top_c": 32, "iters": 12,
+            "radius": 8, "cand_cap": 256, "pool": 4, "instances": [2, 3],
+            "noise_amplitude": 25, "check_frames": 4},
 }
 
 
 def make_root(path) -> str:
-    """A benchmark root at `path` with cells tiny.b1 and tiny.b2 added."""
+    """A benchmark root at `path` with cells tiny.b1, tiny.b2 and tiny.icp
+    added."""
     root = str(path)
     os.makedirs(os.path.join(root, "portbench", "configs"))
     os.makedirs(os.path.join(root, "portbench", "traffic"))

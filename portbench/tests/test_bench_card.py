@@ -20,7 +20,7 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["tiny.b1", "tiny.b2"])
+@pytest.mark.parametrize("cell", ["tiny.b1", "tiny.b2", "tiny.icp"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_tiny_cell_on_the_card(tiny_root, cell, trace):
     _card()
@@ -31,8 +31,12 @@ def test_tiny_cell_on_the_card(tiny_root, cell, trace):
     if trace:
         assert r["device"]["busy_s"] > 0
         assert 0 < r["metrics"]["device_idle_pct"]["value"] < 100
-        for name in ("pyramid_roofline_pct", "coarse_roofline_pct",
-                     "refine_roofline_pct"):
+        names = ["pyramid_roofline_pct", "coarse_roofline_pct",
+                 "refine_roofline_pct"]
+        if cell == "tiny.icp":
+            names.append("icp_roofline_pct")
+            assert r["metrics"]["icp_device_ms_per_frame"]["value"] > 0
+        for name in names:
             assert 0 < r["metrics"][name]["value"] <= 100
 
 
@@ -40,4 +44,10 @@ def test_tiny_cell_on_the_card(tiny_root, cell, trace):
 def test_the_control_fails_on_the_card(tiny_root):
     _card()
     r = control.control_readings("tiny.b1", SEED, "cuda", tiny_root)
-    assert r["list_mismatch"] > 0 and r["bank_mismatch"] > 0
+    assert r["correct"] is False and r["control"]["correct"] is False
+    assert r["control"]["list_mismatch"] > 0 and r["bank_mismatch"] > 0
+    r = control.control_readings("tiny.icp", SEED, "cuda", tiny_root)
+    assert r["correct"] is False and r["control"]["correct"] is False
+    assert r["control"]["pose_mismatch"] > 0
+    for name in ("unchanged", "no_subpixel", "stride_1_dropped"):
+        assert r["fault." + name]["correct"] is False, name

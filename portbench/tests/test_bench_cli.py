@@ -3,6 +3,7 @@
 import json
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,3 +104,127 @@ def test_without_the_port_a_run_fails_without_a_result(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout == ""
     assert "shape_based_matching_tpu_torch" in p.stderr
+
+
+class _Det:
+    """Records the API calls a Client makes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def match(self, frame, threshold):
+        self.calls.append(("match", frame.shape, threshold))
+        return []
+
+    def match_icp(self, frame, threshold, **kw):
+        self.calls.append(("match_icp", frame.shape, threshold, kw))
+        return []
+
+
+def test_client_calls_match_icp_with_the_mix_arguments():
+    pool = np.zeros((3, 8, 8), np.uint8)
+    mix = {"api": "match_icp", "batch": 1, "top_c": 16, "iters": 5,
+           "radius": 6, "cand_cap": 256}
+    det = _Det()
+    c = harness.Client(det, mix, pool, 90.0)
+    idx, answers = c(4)
+    assert list(idx) == [1] and answers == [[]]
+    assert det.calls == [("match_icp", (8, 8), 90.0,
+                          {"top_c": 16, "iters": 5, "radius": 6,
+                           "cand_cap": 256})]
+    assert c.api_span()[1:] == ("match_icp", "detector.match_icp")
+    assert c.rows([]).shape == (0, 10)
+    assert harness.Client(det, {"api": "match"}, pool, 90.0).rows(
+        []).shape == (0, 4)
+
+
+@pytest.mark.parametrize("mix,why", [
+    ({"api": "match_many"}, "unknown api"),
+    ({"api": "match_icp", "batch": 2, "top_c": 1, "iters": 1, "radius": 1,
+      "cand_cap": 256}, "one frame a call"),
+    ({"api": "match", "batch": 4}, "one frame a call")])
+def test_client_rejects_a_mix_it_cannot_run(mix, why):
+    with pytest.raises(ValueError, match=why):
+        harness.Client(_Det(), mix, np.zeros((4, 8, 8), np.uint8), 90.0)
+
+
+def _icp_answer(tx, dtheta=0.5, dscale=1.0, inliers=100, valid=True):
+    from shape_based_matching_tpu_torch import Match
+
+    return [{"match": Match(10, 20, 93.75, "c", 3), "dtheta_deg": dtheta,
+             "dscale": dscale, "tx": tx, "ty": 20.25, "rmse": 0.1,
+             "inliers": inliers, "valid": valid}]
+
+
+KEY = (3, 10, 20, int(np.float32(93.75).view(np.int32)))
+REF = {KEY: (0.5, 1.0, 10.5, 20.25, 100, True)}
+FIELDS = ("dtheta_deg", "dscale", "tx", "ty")
+
+
+def _moved(field, by, **kw):
+    """The reference's answer with `field` moved by `by`."""
+    base = dict(zip(FIELDS, REF[KEY][:4]))
+    base[field] += by
+    a = _icp_answer(base["tx"], base["dtheta_deg"], base["dscale"], **kw)
+    a[0]["ty"] = base["ty"]
+    return a
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_pose_mismatch_on_hand_made_answers(field):
+    tol = harness.POSE_TOL[field]
+    past = harness.compare_poses(
+        {0: [harness.icp_rows(_moved(field, 1.05 * tol))]}, {0: REF})
+    assert past["poses_checked"] == 1 and past["pose_mismatch"] == 1
+    assert past["inliers_mismatch"] == 0
+    inside = harness.compare_poses(
+        {0: [harness.icp_rows(_moved(field, -0.9 * tol))]}, {0: REF})
+    assert inside["pose_mismatch"] == 0
+    assert 0 < max(inside[n] for n in harness.POSE_GAPS) < tol
+    same = harness.compare_poses({0: [harness.icp_rows(_moved(field, 0.0))]},
+                                 {0: REF})
+    assert same["pose_mismatch"] == 0 and all(
+        same[n] == 0 for n in harness.POSE_GAPS)
+    # a key the reference lacks is the list's to count, not the poses'
+    other = harness.compare_icp({0: [harness.icp_rows(_moved(field, 1.0))]},
+                                {0: 1}, {0: {(9, 9, 9, 9): REF[KEY]}})
+    assert other["poses_checked"] == 0 and other["list_mismatch"] == 2
+
+
+@pytest.mark.parametrize("which", ["valid", "inliers"])
+def test_a_valid_flag_or_an_inlier_count_that_differs(which):
+    """A valid flag that differs is a pose mismatch, an inlier count that
+    differs an inliers mismatch; each pool frame's candidate is counted
+    once however often the window answered it."""
+    kw = {"valid": False} if which == "valid" else {"inliers": 99}
+    rows = harness.icp_rows(_moved("tx", 0.0, **kw))
+    got = harness.compare_poses({0: [rows, rows, rows], 1: [rows]},
+                                {0: REF, 1: REF})
+    assert got["poses_checked"] == 4
+    assert (got["pose_mismatch"], got["inliers_mismatch"]) == (
+        (2, 0) if which == "valid" else (0, 2))
+
+
+def test_a_pose_that_is_no_number_fails():
+    kept = {0: [harness.icp_rows(_icp_answer(float("nan")))]}
+    gaps = harness.compare_poses(kept, {0: REF})
+    assert gaps["pose_gap_px"] == harness.NO_NUMBER
+    assert gaps["pose_mismatch"] == 1
+
+
+@pytest.mark.parametrize("icp", [False, True])
+def test_the_verdict_holds_every_number_to_its_limit(icp):
+    rows = harness.icp_rows(_moved("tx", 0.0))
+    cmp = (harness.compare_icp({0: [rows]}, {0: 1}, {0: REF}) if icp else
+           harness.compare({0: [rows[:, :4]]}, {0: 1}, {0: set(REF)}))
+    checks, correct = harness.verdict(cmp, 0, 0)
+    assert correct and list(checks)[-1] == "lists_checked"
+    assert ("pose_mismatch" in checks) == icp
+    for name, c in checks.items():
+        if "limit" not in c:
+            continue
+        worse = dict(cmp, **{name: 1}) if name in cmp else cmp
+        bad = harness.verdict(worse, int(name == "failed_frames"),
+                              int(name == "bank_mismatch"))
+        assert bad[1] is False, name
+    assert harness.verdict(dict(cmp, lists_checked=0), 0, 0)[1] is False

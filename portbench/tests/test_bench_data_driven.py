@@ -59,3 +59,27 @@ def test_a_cell_from_data_files_alone(tiny_root, tmp_path):
     r = harness.run("tiny.b1", SEED, 0.2, True, time.perf_counter(),
                     device="cpu", root=root)
     assert "calls_per_frame" not in r["metrics"]
+
+
+def test_the_icp_cell_loads_from_its_files(tiny_root):
+    spec = harness.load_cell("angle361x128.icp_b1")
+    t = spec["traffic"]
+    assert (t["api"], t["batch"], t["top_c"], t["iters"], t["radius"],
+            t["cand_cap"], t["pool"], t["check_frames"]) == (
+        "match_icp", 1, 32, 12, 8, 256, 128, 16)
+    assert spec["config"]["name"] == "angle361x128"
+    names = {m["name"] for m in spec["per_layer"]}
+    assert {"icp_device_ms_per_frame", "icp_roofline_pct", "device_idle_pct",
+            "device_ops_per_frame", "coarse_steps_per_frame",
+            "pyramid_roofline_pct", "coarse_roofline_pct",
+            "refine_roofline_pct"} == names
+    # the ICP's metrics belong to no other cell
+    assert "icp_roofline_pct" not in {
+        m["name"] for m in harness.load_cell("angle361x128.b1")["per_layer"]}
+    # the tiny twin of the cell, from its data file, runs and proves correct
+    for trace in (False, True):
+        r = harness.run("tiny.icp", SEED, 0.2, trace, time.perf_counter(),
+                        device="cpu", root=tiny_root)
+        assert r["correct"], r["checks"]
+        assert r["checks"]["poses_checked"]["value"] > 0
+        assert list(r["checks"])[-1] == "lists_checked"

@@ -33,12 +33,15 @@ def test_a_run_of_every_entry_loads_no_jax(tiny_root):
 import torch
 torch.set_num_threads(2)
 from portbench import run, harness, control, trace, frames
-from portbench.reference import line2d, training, oracle_np
-for t in (0, 1):
-    r = harness.run("tiny.b2", {SEED}, 0.2, bool(t), time.perf_counter(),
-                    device="cpu", root={tiny_root!r})
-    assert r["correct"], r["checks"]
-control.control_readings("tiny.b1", {SEED}, "cpu", {tiny_root!r})
+from portbench.reference import line2d, training, oracle_np, icp
+for cell in ("tiny.b2", "tiny.icp"):
+    for t in (0, 1):
+        r = harness.run(cell, {SEED}, 0.2, bool(t), time.perf_counter(),
+                        device="cpu", root={tiny_root!r})
+        assert r["correct"], r["checks"]
+for cell in ("tiny.b1", "tiny.icp"):
+    r = control.control_readings(cell, {SEED}, "cpu", {tiny_root!r})
+    assert r["correct"] is False and r["control"]["correct"] is False, r
 assert run.main(["--workload", "nope", "--seed", "1", "--seconds", "1"]) == 2
 """)
     assert "shape_based_matching_tpu_torch" in found  # the run was real
@@ -63,7 +66,7 @@ def test_the_command_as_the_driver_runs_it_loads_no_jax():
 
 def test_the_reference_imports_nothing_of_the_program():
     found = _modules("from portbench.reference import line2d, training, "
-                     "oracle_np")
+                     "oracle_np, icp")
     assert not any(m.startswith("shape_based_matching") for m in found)
     ref = os.path.join(REPO, "portbench", "reference")
     for name in os.listdir(ref):

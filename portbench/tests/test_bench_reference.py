@@ -110,6 +110,28 @@ def test_the_control_fails_the_comparison(tiny_root):
     readings = [control.control_readings("tiny.b1", s, "cpu", tiny_root)
                 for s in (SEED, SEED + 1, SEED + 2)]
     for r in readings:
-        assert r["lists_checked"] == 4 and r["lists_missing"] == 0
-        assert r["list_mismatch"] > 0, r
+        c = r["control"]
+        assert r["correct"] is False and c["correct"] is False, r
+        assert c["lists_checked"] == 4 and c["lists_missing"] == 0
+        assert c["list_mismatch"] > 0, r
         assert r["bank_mismatch"] > 0, r
+
+
+# the faults that every seed of the tiny ICP cell catches; one step fewer
+# than the traffic's 12 is caught too (a few candidates end 12 steps in a
+# two-cycle). Half the steps and the largest stride dropped read 0 on some
+# seeds of so small a cell, and are read at the cell's size on the card.
+ICP_FAULTS = ("unchanged", "no_subpixel", "stride_1_dropped", "steps_11")
+
+
+def test_the_icp_control_and_faults_fail_the_comparison(tiny_root):
+    for seed in (SEED, SEED + 1, SEED + 2):
+        r = control.control_readings("tiny.icp", seed, "cpu", tiny_root)
+        c = r["control"]
+        assert r["correct"] is False and c["correct"] is False, r
+        assert c["list_mismatch"] == 0 and c["poses_checked"] > 10
+        assert c["pose_mismatch"] > c["poses_checked"] // 2, r
+        for name in ICP_FAULTS:
+            f = r["fault." + name]
+            assert f["correct"] is False and f["pose_mismatch"] > 0, (name, f)
+        assert {"fault.steps_6", "fault.stride_8_dropped"} <= set(r)

@@ -1,5 +1,7 @@
 """The roofline arithmetic on hand-counted shapes, and the readers."""
 
+import math
+
 import pytest
 import torch
 
@@ -35,6 +37,16 @@ def test_refine_work_by_hand():
     b, o = roofline.refine_work(100, 100 * 128, 5 * 128, 5)
     assert b == 4 * 640 + 8 * 5 + 2 * 16 * 100
     assert o == 256 * 12800
+
+
+def test_icp_work_by_hand():
+    # a 1024^2 gray frame read once
+    assert roofline.icp_field_bytes((1024, 1024)) == 1048576
+    # 3 candidates of 128 live points, 12 steps, top_c 32: the points at
+    # 4 bytes, 13 x 32 float32 written; 15 operations a point and step
+    b, o = roofline.icp_refine_work(384, 12, 32)
+    assert b == 4 * 384 + 4 * 13 * 32
+    assert o == 12 * 384 * 15
 
 
 def test_bound_and_share():
@@ -88,6 +100,28 @@ def test_readers_on_a_hand_made_window():
     by = (4 * 128 + 8 * 2 + 2 * 16 * 3) / 3.35e12
     assert read["refine_roofline_pct"](w) == pytest.approx(
         100 * max(ops, by) / 1e-4)
+    # the ICP: one frame's field and one refine of 2 live candidates of
+    # templates 3 and 7 (64 valid slots each of 70), 12 steps, top_c 4
+    bank_valid = torch.zeros((361, 70), dtype=torch.bool)
+    bank_valid[:, :64] = True
+    icp_records = dict(records, **{
+        "icp.field": [{"frame_shape": (1024, 1024)}],
+        "icp.refine": [{"top_c": 4, "iters": 12, "bank_valid": bank_valid,
+                        "k": torch.tensor([3, 7, 0, 0], dtype=torch.int32),
+                        "score": torch.tensor([95.0, 91.0, -math.inf,
+                                               -math.inf])}]})
+    w = _window(icp_records, {"icp.field": 3e-4, "icp.refine": 1e-4})
+    icp_read = {n: harness.load_reader(harness.ROOT, n) for n in (
+        "icp_device_ms_per_frame", "icp_roofline_pct")}
+    assert icp_read["icp_device_ms_per_frame"](w) == pytest.approx(0.2)
+    by = (1048576 + 4 * 128 + 4 * 13 * 4) / 3.35e12
+    ops = 12 * 128 * 15 / 67e12
+    assert icp_read["icp_roofline_pct"](w) == pytest.approx(
+        100 * max(by, ops) / 4e-4)
+    for name in icp_read:
+        assert icp_read[name](_window(records, {})) is None  # no ICP
+        assert icp_read[name](_window(icp_records, {},
+                                      busy_s=None)) is None
     # no device events: nothing to read, never 0
     cpu = _window(records, {}, busy_s=None)
     for name in ("device_idle_pct", "device_ops_per_frame",

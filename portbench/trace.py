@@ -54,10 +54,23 @@ def _nothing(a, kw, out):
     return {}
 
 
+def _icp_field(a, kw, out):
+    return {"frame_shape": tuple(a[0].shape)}
+
+
+def _icp_refine(a, kw, out):
+    # the live points are counted by the reader, after the window: the
+    # bank's valid slots of the selected templates, where the score lives
+    return {"top_c": int(_arg(a, kw, 12, "top_c", 32)),
+            "iters": int(_arg(a, kw, 13, "iters", 12)),
+            "bank_valid": a[6], "k": out[1], "score": out[4]}
+
+
 # the port's functions wrapped in the traced run: (module, attribute,
 # span, what a call records for the readers: small tensors and shapes
 # only, so that tracing holds no frame's buffers)
 _DETECTOR = "shape_based_matching_tpu_torch.models.detector"
+_ICP = "shape_based_matching_tpu_torch.models.icp"
 WRAPPED = (
     (_DETECTOR, "_planar", "upload", _nothing),
     (_DETECTOR, "_batch_pyramid", "pyramid", _pyramid),
@@ -67,6 +80,9 @@ WRAPPED = (
     (_DETECTOR, "_to_host", "download", _nothing),
     (_DETECTOR, "Detector._matches", "match_list", _nothing),
     (_DETECTOR, "_sort_dedup", "sort_dedup", _nothing),
+    (_ICP, "edge_nearest_field", "icp.field", _icp_field),
+    (_ICP, "refine_packed_candidates", "icp.refine", _icp_refine),
+    (_ICP, "_to_host", "icp.download", _nothing),
 )
 WINDOW = "window"          # the span around the whole traced window
 # idle host seconds at each edge of the traced window: without them the
