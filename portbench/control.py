@@ -7,7 +7,10 @@ answers: for a match list, the score in bfloat16 (the configuration
 states float32); for a ``match_icp`` mix, the ICP's transform, normal
 equations, state and poses in bfloat16 over the float32 candidates
 (``reference/icp.py``'s ``pose_dtype``). It has to come out as not
-correct. Not run by the benchmark's runs.
+correct. Not run by the benchmark's runs. A cell whose configuration
+names a deployment module (``portbench/deployments/``) takes its control
+from that module's ``reference(..., lower=True)``, judged by the same
+comparison.
 
 For a ``match_icp`` mix it also reads faults planted in the reference
 put in the program's place, each judged by the same verdict: a refine
@@ -89,6 +92,26 @@ def _icp_faults(config: dict, traffic: dict, banks: list, pool, sample,
     return out
 
 
+def _deployment_readings(deployment, config: dict, traffic: dict,
+                         seed: int, device: str) -> dict:
+    """The control's reading when a deployment module's reference, one
+    precision below the configuration's, answers in place of the program
+    for the sampled frames of a run."""
+    pool, counts = deployment.frame_pool(config, traffic, seed)
+    sample = frames.check_sample(traffic, seed, counts)
+    want_bank, want = deployment.reference(config, traffic, seed, pool,
+                                           sample, device)
+    low_bank, got = deployment.reference(config, traffic, seed, pool,
+                                         sample, device, lower=True)
+    cmp = harness.compare({pos: [(s, 0)] for pos, s in got.items()},
+                          {p: 1 for p in sample}, want)
+    bank_mismatch = harness.bank_difference(low_bank, want_bank)
+    return {"correct": harness.verdict(cmp, 0, bank_mismatch)[1],
+            "bank_mismatch": bank_mismatch,
+            "matches_in_reference": int(sum(len(s) for s in want.values())),
+            "control": _judged(cmp)}
+
+
 def control_readings(workload: str, seed: int, device: str,
                      root: str = harness.ROOT) -> dict:
     """The control's reading when the bfloat16 reference answers in place
@@ -98,6 +121,9 @@ def control_readings(workload: str, seed: int, device: str,
 
     spec = harness.load_cell(workload, root)
     config, traffic = spec["config"], spec["traffic"]
+    deployment = harness.load_deployment(config, root)
+    if deployment is not None:
+        return _deployment_readings(deployment, config, traffic, seed, device)
     lower = getattr(torch, SCORE_BELOW[config["score_dtype"]])
     shape = frames.shape_image(config, seed)
     pool = frames.frame_pool(config, traffic, shape, seed)

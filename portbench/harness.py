@@ -5,7 +5,12 @@ A cell of ``BENCHMARK.json`` names a configuration (its file, under
 ``portbench/configs/``) and a traffic mix (``portbench/traffic/<name>.json``);
 its per-layer metrics are readers ``portbench/metrics/<metric>.py``. All
 of them are found by name under the checkout's root, so a cell, a mix or
-a metric is added by files alone.
+a metric is added by files alone. A configuration that names a
+deployment module (``"module": "<name>"``, the file
+``portbench/deployments/<name>.py``, found by name under the root in the
+same way) takes its training, its frames, its call and its reference
+from that module; everything else of a run stays here (see
+``portbench/deployments/__init__.py``).
 
 Set-up loads the port's compiled libraries (building them in a checkout
 that lacks them), trains the configuration's bank on the device through
@@ -97,6 +102,26 @@ def load_cell(workload: str, root: str = ROOT) -> dict:
         "end_to_end": _for_cell(bench["end_to_end"], workload),
         "per_layer": _for_cell(bench["per_layer"], workload),
     }
+
+
+def load_deployment(config: dict, root: str = ROOT):
+    """The deployment module that `config` names under ``"module"``,
+    ``<root>/portbench/deployments/<name>.py``, or None where it names
+    none. KeyError when there is no such file."""
+    name = config.get("module")
+    if name is None:
+        return None
+    import importlib.util
+
+    path = os.path.join(root, "portbench", "deployments", name + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no deployment module {name!r} "
+                       f"(portbench/deployments/{name}.py)")
+    spec = importlib.util.spec_from_file_location(
+        "portbench_deployment_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(root: str, name: str):
@@ -457,29 +482,41 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     spec = load_cell(workload, root)
     config, traffic = spec["config"], spec["traffic"]
     on_card = torch.device(device).type == "cuda"
+    deployment = load_deployment(config, root)
 
     # --- set-up: kernels, bank, frames, warm-up ------------------------
     phases = [("imports", time.perf_counter())]
     built = load_libraries(on_card)
     phases.append(("kernels", time.perf_counter()))
-    shape = frames.shape_image(config, seed)
-    angles = frames.template_angles(config)
-    T = tuple(int(t) for t in config["T"])
-    det = Detector(num_features=int(config["num_features"]), T=T,
-                   weak_threshold=float(config["weak_threshold"]),
-                   strong_threshold=float(config["strong_threshold"]),
-                   device=device)
-    tid = det.add_template(shape, CLASS_ID, np.full_like(shape, 255))
-    if tid != 0:
-        raise RuntimeError("training the configuration's shape failed")
-    det.add_templates_rotate(CLASS_ID, tid, angles[1:],
-                             (shape.shape[1] / 2.0, shape.shape[0] / 2.0))
-    phases.append(("bank", time.perf_counter()))
-    pool = frames.frame_pool(config, traffic, shape, seed)
-    phases.append(("frames", time.perf_counter()))
-    counts = frames.instance_counts(traffic, seed)
-    sample = frames.check_sample(traffic, seed, counts)
-    client = Client(det, traffic, pool, float(config["match_threshold"]))
+    if deployment is None:
+        shape = frames.shape_image(config, seed)
+        angles = frames.template_angles(config)
+        T = tuple(int(t) for t in config["T"])
+        det = Detector(num_features=int(config["num_features"]), T=T,
+                       weak_threshold=float(config["weak_threshold"]),
+                       strong_threshold=float(config["strong_threshold"]),
+                       device=device)
+        tid = det.add_template(shape, CLASS_ID, np.full_like(shape, 255))
+        if tid != 0:
+            raise RuntimeError("training the configuration's shape failed")
+        det.add_templates_rotate(CLASS_ID, tid, angles[1:],
+                                 (shape.shape[1] / 2.0, shape.shape[0] / 2.0))
+        phases.append(("bank", time.perf_counter()))
+        pool = frames.frame_pool(config, traffic, shape, seed)
+        phases.append(("frames", time.perf_counter()))
+        counts = frames.instance_counts(traffic, seed)
+        sample = frames.check_sample(traffic, seed, counts)
+        client = Client(det, traffic, pool, float(config["match_threshold"]))
+    else:
+        det = deployment.train(config, seed, device)
+        phases.append(("bank", time.perf_counter()))
+        pool, counts = deployment.frame_pool(config, traffic, seed)
+        phases.append(("frames", time.perf_counter()))
+        if not len(pool) == len(counts) == int(traffic["pool"]):
+            raise RuntimeError("the deployment's pool is not the mix's")
+        sample = frames.check_sample(traffic, seed, counts)
+        client = deployment.client(det, traffic, pool,
+                                   float(config["match_threshold"]))
     for i in range(client.calls_per_pass):
         client(i)
     if on_card:
@@ -545,21 +582,32 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         dev.update(_nvidia_smi())
 
     # --- correctness -----------------------------------------------------
-    got_bank = port_fingerprint(det)
-    icp = client.icp is not None
+    if deployment is None:
+        got_bank = port_fingerprint(det)
+        icp = client.icp is not None
+    else:
+        got_bank, icp = deployment.fingerprint(det), False
     del client, det
     gc.unfreeze()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    want_bank, banks = reference_bank(config, shape, device)
-    if icp:
-        want = reference_poses(config, traffic, banks, pool, sorted(win.due),
-                               device)
-        cmp = compare_icp(win.kept, win.due, want)
+    if deployment is None:
+        want_bank, banks = reference_bank(config, shape, device)
+        if icp:
+            want = reference_poses(config, traffic, banks, pool,
+                                   sorted(win.due), device)
+            cmp = compare_icp(win.kept, win.due, want)
+        else:
+            want = reference_sets(config, banks, pool, sorted(win.due), device)
+            cmp = compare(win.kept, win.due, want)
     else:
-        want = reference_sets(config, banks, pool, sorted(win.due), device)
+        want_bank, want = deployment.reference(
+            config, traffic, seed, pool, sorted(win.due), device)
+        if set(want) != set(win.due):
+            raise RuntimeError("the deployment's reference left out frames "
+                               "to compare")
         cmp = compare(win.kept, win.due, want)
     bank_mismatch = bank_difference(got_bank, want_bank)
     print(f"reference: {time.perf_counter() - t_ref:.3f} s for the bank and "

@@ -14,8 +14,9 @@ libraries, the seconds that took, and ``setup_s``), and last ``checks``,
 each number compared with its limit, which are also the last lines of
 standard error. Exits non-zero, with no
 result, where CUDA is not available or has fewer cards than the cell asks
-for, where the cell is unknown, and where the process has loaded JAX or
-the JAX package by the end of the window.
+for, where the cell is unknown or its configuration names a deployment
+module that ``portbench/deployments/`` lacks, and where the process has
+loaded JAX or the JAX package by the end of the window.
 """
 
 import time
@@ -57,6 +58,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     try:
         spec = harness.load_cell(args.workload)
+        harness.load_deployment(spec["config"])
     except KeyError as e:
         print(e, file=sys.stderr)
         return 2
