@@ -83,7 +83,10 @@ Phases, each reported on its own line:
    sync contract (no synchronizing call at a ``match_icp_async``
    dispatch, each of its stages returning while the card still runs a
    kernel queued before it, the card's launch queue depth, one download
-   per ``result()`` and per ``match_icp``);
+   per ``result()`` and per ``match_icp``); ``csrc/icp.cu`` against its
+   plain twin on the production call's candidates (poses, inliers and
+   valid bit for bit, one launch and no other kernel, the device and
+   queued ms of both);
    ``match_refine_batch`` against ``refine_matches_icp``; ms/frame of
    the edge field, the ICP at 64 candidates, match + refine, match_icp,
    a 3-frame match_icp_async loop and match_refine_batch at B=1 and B=8;
@@ -1567,6 +1570,80 @@ def _sync_contract(det, cid: str, frames: list, cfg: dict) -> dict:
             "match_icp_syncs": n_icp}
 
 
+def _icp_kernel_check(det, frame, thr_f: float, kw: dict,
+                      card: str) -> tuple[dict, dict]:
+    """icp.cu against its plain twin on the inputs of one production
+    match_icp (32 candidates of the 1000 x 128 bank, 12 steps): poses,
+    inliers and valid flags equal bit for bit, one launch a call and no
+    other device kernel; the kernel's and the twin's device ms (profiler)
+    and queued ms (CUDA events) a call, and its roofline bound."""
+    from portbench.metrics.roofline import icp_refine_work
+    from shape_based_matching_tpu_torch.models import icp
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+
+    seen = []
+    real = icp.icp_refine_points
+    icp.icp_refine_points = lambda *a, **k: seen.append((a, k)) or real(
+        *a, **k)
+    try:
+        det.match_icp(frame, thr_f, **kw)
+    finally:
+        icp.icp_refine_points = real
+    (args, k), = seen
+
+    def kernel():
+        return icp.icp_refine_points(*args, **k)
+
+    def twin():
+        return icp.icp_refine_points_plain(*args, **k)
+
+    got, want = kernel(), twin()
+    differ = int((got.inliers != want.inliers).sum()
+                 + (got.valid != want.valid).sum())
+    for f in POSE_TOL:
+        differ += int((getattr(got, f).view(torch.int32)
+                       != getattr(want, f).view(torch.int32)).sum())
+    queued, kern = device_work(kernel)
+    names = {n for n, _ in kern}
+    if differ or queued != CALLS or any("icp_kernel" not in n
+                                        for n in names):
+        raise AssertionError(f"icp.cu: {differ} fields differ from the "
+                             f"twin, {queued / CALLS} launches a call, "
+                             f"kernels {names}")
+    twin_queued, twin_kern = device_work(twin)
+    C, N = args[4].shape[:2]
+    points = int(args[6].sum())
+    work = icp_refine_work(points, k["iters"], C)
+    ms, plain_ms = _time_ms(kernel, 50), _time_ms(twin, 10)
+    dev_ms = sum(t for _, t in kern) / CALLS
+    twin_dev_ms = sum(t for _, t in twin_kern) / CALLS
+    bound_ms = max(work[0] / PEAK_BYTES_S, work[1] / PEAK_OPS_S) * 1e3
+    rep = {"C": C, "N": N, "live_points": points, "iters": k["iters"],
+           "kernel_device_ms": dev_ms, "kernel_queued_ms": ms,
+           "twin_device_ms": twin_dev_ms, "twin_queued_ms": plain_ms,
+           "twin_launches": twin_queued / CALLS, "bound_ms": bound_ms,
+           "share_of_bound": bound_ms / dev_ms if dev_ms else None}
+    print(f"production: icp.cu equals its twin bit for bit (C={C} N={N}, "
+          f"{points} live points, {k['iters']} steps; poses, inliers, "
+          f"valid); device ms a call kernel {dev_ms:.5f} / twin "
+          f"{twin_dev_ms:.5f} ({rep['twin_launches']:.0f} launches); "
+          f"queued ms {ms:.4f} / {plain_ms:.4f}; bound {bound_ms:.6f} ms "
+          f"on {card}")
+    record = {"name": "icp_steps", "route": "cuda",
+              "source": "shape_based_matching_tpu_torch/csrc/icp.cu",
+              "replaces": "shape_based_matching_tpu/models/icp.py "
+                          "_icp_refine_points_impl (XLA)",
+              "path": "production", "shape": f"C={C} N={N} iters="
+                                             f"{k['iters']}",
+              "launches": 1, "max_abs_err": differ, "ms": ms,
+              "plain_ms": plain_ms, "device_ms": dev_ms,
+              "bound_ms": bound_ms,
+              "bound_by": "bytes" if work[0] / PEAK_BYTES_S
+              >= work[1] / PEAK_OPS_S else "operations", "library_ms": None}
+    return record, rep
+
+
 def production_phase(card: str) -> tuple[list, dict]:
     """Phase 12: the production path at full width (bench.py's production
     cells): the committed 1000 x 128 bank, synthetic_scene(1024, 1024,
@@ -1589,6 +1666,7 @@ def production_phase(card: str) -> tuple[list, dict]:
         coarse_maps, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.icp import icp_steps
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
         map_refine)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
@@ -1671,21 +1749,24 @@ def production_phase(card: str) -> tuple[list, dict]:
 
     # the path through the kernels: match_icp against the golden
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, chain_scores)
+               map_refine, chain_scores, icp_steps)
     det.match_icp(frame, thr_f, **kw)  # warm
     got, launches = _counted(kernels,
                              lambda: det.match_icp(frame, thr_f, **kw))
-    need = ["quant_spread", "coarse_scores", "refine_windows"]
+    need = ["quant_spread", "coarse_scores", "refine_windows", "icp_steps"]
     if golden["overflow"]:
         need += ["coarse_maps", "map_refine"]
-    if not all(launches[n] for n in need) or launches["chain_scores"]:
+    if (not all(launches[n] for n in need) or launches["chain_scores"]
+            or launches["icp_steps"] != 1):
         raise AssertionError(f"production: a kernel of the path was not "
-                             f"launched, or the chain was: {launches}")
+                             f"launched, or the chain was, or icp.cu not "
+                             f"once: {launches}")
     pose_dev = _pose_check(got, golden["entries"], "match_icp")
     print(f"production: match_icp equals the production_icp golden "
           f"({len(got)} entries, {golden['path']} path: cap "
           f"{cfg['cand_cap']} overflow {golden['overflow']}); largest pose "
           f"deviation {pose_dev}; launches {launches}")
+    icp_record, icp_report = _icp_kernel_check(det, frame, thr_f, kw, card)
     cpu = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
                    device="cpu")
     cpu.class_templates[cid] = pyramids
@@ -1801,7 +1882,9 @@ def production_phase(card: str) -> tuple[list, dict]:
         plain_ms = _time_ms(plain, 3)
         records.append(_record(fn, srcf, replaces, err, launches,
                                "production", ms, plain_ms, work, shape))
+    records.append(icp_record)
     return records, {
+        "icp_steps": icp_report,
         "field_exact": field_exact, "field_dev": field_dev,
         "octant_exact": oct_exact, "pose_dev": pose_dev,
         "cpu_pose_dev": cpu_dev,

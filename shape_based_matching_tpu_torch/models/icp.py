@@ -12,7 +12,9 @@ The JAX package's ``models/icp.py``, op for op:
 * **ICP** (``icp_refine_points``): per candidate, 12 steps of a
   point-to-plane least squares that is linear in the sim2 parameters
   (a, b, tx, ty) = (s cos, s sin, t): one 4x4 solve per candidate and
-  step, batched over the candidates.
+  step. On the card all steps of all candidates are one launch of
+  ``csrc/icp.cu``; on the CPU the plain twin batches them over the
+  candidates.
 * **Entry points**: ``refine_matches_icp`` (a list of ``Match`` es),
   ``match_icp`` (match and refine with one download), ``match_icp_async``
   (the same, returning before any device work finishes) and
@@ -40,8 +42,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda.icp import icp_steps
 from ..ops.filters import gaussian_blur7_u8, sobel3_i32
 from ..ops.gradients import weak_threshold_sq
+from ..utils.profiling import span
 from ..utils.verify import bgr2gray_u8
 from .detector import Match, _as_tensor
 
@@ -218,7 +222,26 @@ def icp_refine_points(off, normal, has, subpix, pts: torch.Tensor,
     correspondences farther than `radius`, and solves the normal
     equations with the anchor A + 1e-3 I, v + 1e-3 state; a candidate
     with fewer than `min_inliers` keeps its state. rmse and inliers are
-    the last step's, after that choice."""
+    the last step's, after that choice.
+
+    On the card every step of every candidate is one launch
+    (``ops/cuda/icp.icp_steps``, ``csrc/icp.cu``); on the CPU it runs the
+    plain twin ``icp_refine_points_plain``. The span's ``route`` says
+    which ("kernel" / "plain")."""
+    route = "kernel" if pts.device.type == "cuda" else "plain"
+    with span("sbm.icp.steps", route=route, C=pts.shape[0], N=pts.shape[1],
+              iters=iters):
+        return IcpResult(*icp_steps(off, normal, has, subpix, pts, origins,
+                                    pt_valid, iters, radius, min_inliers))
+
+
+def icp_refine_points_plain(off, normal, has, subpix, pts: torch.Tensor,
+                            origins: torch.Tensor, pt_valid: torch.Tensor,
+                            iters: int = 12, radius: int = 8,
+                            min_inliers: int = 8) -> IcpResult:
+    """Plain twin of ``icp_refine_points`` in torch ops: a Python loop over
+    the steps, each a batch of elementwise ops, gathers, three bmm and a
+    batched ``solve_batched`` over the candidates."""
     h, w = has.shape
     C = pts.shape[0]
     dev = pts.device

@@ -83,6 +83,10 @@ SIGNATURES = {
     "sbm_pyr_down": (_P, _P, _I, _I, _I, _P),
     # sp, out, B, H, W, T, XC, n_ori, stream
     "sbm_linear_memories": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # off, normal, has, subpix, pts, origins, pt_valid, out, inliers,
+    # valid, C, N, H, W, iters, r2, min_inliers, stream
+    "sbm_icp_steps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _F, _I, _P),
 }
 
 

@@ -45,6 +45,7 @@ from shape_based_matching_tpu_torch.utils import synthetic
 from shape_based_matching_tpu_torch.oracle import reference as oracle
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
 
+from .torch_icp_replay import replay_torch, scene_case
 from .torch_extract_cases import (CHAIN_CASES, EXTRACT_CASES,
                                   STRADDLE_CASES, chain_case, chain_rows,
                                   extract_case, straddle_case)
@@ -1050,8 +1051,12 @@ def test_edge_field_on_card_equals_cpu(dev):
 
 
 def test_match_icp_on_card_equals_cpu(dev):
-    """match_icp, match_refine_batch and refine_detections on the card:
-    the same match keys as on the CPU, poses to float32 rounding."""
+    """match_icp, match_refine_batch, refine_matches_icp (icp.cu on the
+    card, its plain twin on the CPU) and refine_detections: the same match
+    keys as on the CPU, inliers and valid equal, poses to float32
+    rounding (the production tolerance)."""
+    from shape_based_matching_tpu_torch import refine_matches_icp
+
     frame = synthetic.synthetic_scene(
         256, 256, synthetic.synthetic_shape_image(96, 0), n_instances=2,
         seed=4)
@@ -1064,18 +1069,113 @@ def test_match_icp_on_card_equals_cpu(dev):
         icp = det.match_icp(frame, 70.0, top_c=8)
         batch = refine_matches_icp_batch(det, frame)
         ref = refine_detections(det, frame, det.match(frame, 70.0)[:4])
-        res[device] = (icp, batch, ref)
-    (ci, cb, cr), (gi, gb, gr) = res["cpu"], res[dev]
+        listed = refine_matches_icp(det, frame, det.match(frame, 70.0)[:8])
+        res[device] = (icp, batch, ref, listed)
+    (ci, cb, cr, cl), (gi, gb, gr, gl) = res["cpu"], res[dev]
     assert ci and [r["match"] for r in ci] == [r["match"] for r in gi]
-    for a, b in zip(ci, gi):
+    assert cl and [r["match"] for r in cl] == [r["match"] for r in gl]
+    for a, b in [*zip(ci, gi), *zip(cl, gl)]:
         assert a["valid"] == b["valid"] and a["inliers"] == b["inliers"]
-        assert abs(a["tx"] - b["tx"]) < 1e-2 and abs(a["ty"] - b["ty"]) < 1e-2
-        assert abs(a["dtheta_deg"] - b["dtheta_deg"]) < 1e-3
+        for f, tol in POSE_TOL.items():
+            assert abs(a[f] - b[f]) < tol, (f, a[f], b[f])
     assert torch.equal(cb[0], gb[0].cpu())
     assert (cb[1] - gb[1].cpu()).abs().max() < 1e-2
     assert [r["match"] for r in cr] == [r["match"] for r in gr]
     for a, b in zip(cr, gr):
         assert abs(a["x"] - b["x"]) < 1e-3 and abs(a["y"] - b["y"]) < 1e-3
+
+
+# icp.cu: a candidate of N points on a block of 128 threads: N = 128, more
+# points than threads (134 of the production bank, 300), one candidate
+# and top_c = 32
+ICP_CASES = [(1, 128), (32, 128), (6, 300), (32, 134)]
+POSE_TOL = {"dtheta_deg": 1e-3, "dscale": 1e-4, "tx": 1e-2, "ty": 1e-2}
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> int:
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+@pytest.mark.parametrize("C,N", ICP_CASES)
+def test_icp_steps_kernel_is_its_replay(dev, C, N):
+    """icp.cu is its NumPy replay (tests/torch_icp_replay.py) bit for bit:
+    the state (tx, ty), rmse, inliers and valid flags; dtheta and dscale,
+    which atan2f and hypotf round on the card, to 2 ulps."""
+    from shape_based_matching_tpu_torch.ops.cuda.icp import icp_steps
+
+    field, pts, origins, pv = scene_case(C, N, C + N, device=dev)
+    before = icp_steps.launches
+    got = [t.cpu().numpy() for t in icp_steps(*field, pts, origins, pv, 12,
+                                                8, 8)]
+    assert icp_steps.launches == before + 1
+    want = replay_torch(*field, pts, origins, pv)
+    for i in (2, 3, 4, 5, 6):
+        np.testing.assert_array_equal(got[i], want[i])
+    assert _ulps(got[0], want[0]) <= 2 and _ulps(got[1], want[1]) <= 2
+    assert got[6].sum() >= C // 2
+
+
+@pytest.mark.parametrize("C,N", ICP_CASES)
+def test_icp_steps_kernel_equals_twin(dev, C, N):
+    """The kernel against the plain twin on the card. At a batch of
+    candidates the twin's bmm and solve run cuBLAS's batched kernels, whose
+    arithmetic icp.cu takes: poses, inliers and valid flags equal bit for
+    bit. One candidate takes other cuBLAS kernels: inliers and valid
+    equal, poses within the production tolerance. rmse (the kernel's own
+    order) to float32 rounding."""
+    from shape_based_matching_tpu_torch.models.icp import (
+        icp_refine_points, icp_refine_points_plain)
+
+    field, pts, origins, pv = scene_case(C, N, C + N, device=dev)
+    got = icp_refine_points(*field, pts, origins, pv)
+    want = icp_refine_points_plain(*field, pts, origins, pv)
+    assert torch.equal(got.inliers, want.inliers.to(torch.int32))
+    assert torch.equal(got.valid, want.valid)
+    for f, tol in POSE_TOL.items():
+        g, w = getattr(got, f), getattr(want, f)
+        if C > 1:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), f
+        else:
+            assert float((g - w).abs().max()) < tol, f
+    assert float((got.rmse - want.rmse).abs().max()) < 1e-5
+
+
+def test_icp_steps_is_one_launch_and_no_other_kernel(dev):
+    """icp_refine_points on the card queues one device kernel a call, and
+    torch.profiler sees no device kernel but icp.cu's: no cuBLAS,
+    cuSOLVER or torch op."""
+    from shape_based_matching_tpu_torch.models.icp import icp_refine_points
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+
+    field, pts, origins, pv = scene_case(32, 128, 5, device=dev)
+    queued, kern = device_work(
+        lambda: icp_refine_points(*field, pts, origins, pv))
+    assert queued == CALLS
+    names = [n for n, _ in kern]
+    assert names and all("icp_kernel" in n for n in names), names
+
+
+def test_match_icp_launches_the_kernel_once_a_class(dev):
+    """match_icp on two classes: one icp.cu launch a class and frame;
+    match_refine_batch at B=2 one a class and frame."""
+    from shape_based_matching_tpu_torch import match_refine_batch
+    from shape_based_matching_tpu_torch.ops.cuda.icp import icp_steps
+
+    frame = synthetic.synthetic_scene(
+        256, 256, synthetic.synthetic_shape_image(96, 0), n_instances=2,
+        seed=4)
+    det = Detector(num_features=48, device=dev)
+    for cid, seed in (("a", 0), ("b", 1)):
+        det.add_template(synthetic.synthetic_shape_image(96, seed), cid)
+    det.match_icp(frame, 70.0, top_c=8)
+    before = icp_steps.launches
+    det.match_icp(frame, 70.0, top_c=8)
+    assert icp_steps.launches == before + 2
+    match_refine_batch(det, np.stack([frame, frame]), 70.0, top_c=8)
+    assert icp_steps.launches == before + 6
 
 
 def refine_matches_icp_batch(det, frame):
