@@ -11,13 +11,14 @@ Phases, each reported on its own line:
    and the map refine step (kernel 9: window origin, window, first max,
    score and threshold in one launch; every output of every candidate,
    a NaN score against a NaN) at the shapes of the frame's overflow
-   re-run (cap 1024, map route), where ``refine_from_maps`` must be one
+   re-run (cap 1024), where ``refine_from_maps`` must be one
    launch (its counter; torch.profiler's device kernels where it records
    them);
 4. the flagship path: ``Detector(device="cuda")`` matches the flagship
    frame (B=1) and a batch of 8 frames; the launch counters of its
-   kernels (level maps, map refine, the extraction and its prefix
-   included) must rise,
+   kernels (the extraction and its prefix included) must rise, those of
+   the chain and the map route (level maps, map refine) must not, since
+   every re-run refines through the window,
    the B=1 list must equal the committed JAX golden, and each frame of
    the batch must equal its own B=1 match;
 5. warm timings from CUDA events: each kernel against its twin (the
@@ -29,9 +30,10 @@ Phases, each reported on its own line:
    walk); the chain kernel against its twin (B=1 and B=8) and against
    coarse.cu from scratch, the window at cap 256, the level maps and the
    map refine step against their twins, all bitwise at the path's
-   shapes; the B=1 match (chain at the coarse level, overflow re-run at a
-   cap of 4096 through the map route) must equal its JAX golden and raise
-   the counters of the chain, level-map and map refine kernels; timings
+   shapes; the B=1 match (chain at the coarse level, one overflow re-run
+   at a cap of 4096 through the window) must equal its JAX golden, raise
+   the counters of the chain and the window and leave the map route's at
+   0; timings
    of each kernel against its twin, the chain against coarse.cu, the
    window route against the map route at caps 1024, 4096 and 16384, and
    end to end at B=1;
@@ -49,9 +51,8 @@ Phases, each reported on its own line:
    (the C++ golden under the contract of tests/test_golden_16ori.py for
    the experiment's frame), the counters of its kernels must rise, and
    the match is timed (mean of 10 warm calls between CUDA events). Where
-   the frame overflows the cap of 256, the re-run's level-0 kernels (the
-   window at its cap, or the level maps and the map refine step) are held
-   against their twins and timed too;
+   the frame overflows the cap of 256, the re-run's level-0 window at its
+   cap is held against its twin and timed too;
 8. training: every committed bench_banks/ snapshot trained on the card
    (the base ``add_template``, then ``add_templates_rotate``, each
    timed) equals its snapshot field for field, and the flagship frame
@@ -64,7 +65,7 @@ Phases, each reported on its own line:
 11. the multi-class match: the registry {bench: rot1000x63, wide:
    rot1000x128, dense: rot10000x63}, trained by phase 8, on the flagship
    frame in one merged step. Its coarse route (the planner's own
-   decision on the merged bank), re-run cap and refine routes; its
+   decision on the merged bank), re-run cap and class steps; its
    kernels against their twins at the merged shapes; its launches; B=1
    equal to the union of the single-class lists, its bench and dense
    parts equal to their goldens, B=8 equal to B=1, ``as_matches=False``
@@ -139,11 +140,10 @@ Phases, each reported on its own line:
    one ``coarse_extract`` call, and ``torch.nonzero`` on the 4096^2
    frame's live mask as a yardstick; then ``Detector.match`` with
    rot10000x63 at the default cap on phase 15's 4096^2 frame at
-   thresholds 85 and 60 and on the flagship frame at 60 (the last two
-   with more distinct candidate templates than one slab; the 4096^2
-   frame at 60 past the 65,536 bucket), each re-run through the map
-   route's slabs: extract.cu against its twin on the run's S at every
-   cap it uses, its kernels' launches, its list equal to the one at a
+   thresholds 85 and 60 and on the flagship frame at 60 (the 4096^2
+   frame at 60 past the 65,536 bucket), each re-run once through the
+   window: extract.cu against its twin on the run's S at every cap it
+   uses, its kernels' launches, its list equal to the one at a
    cap that holds every candidate, its peak device memory at most 8 GB,
    and ms and peak GB of both runs (``overflow_phase``);
 18. the entry points (``entry_phase``): ``entry.entry(n)``'s
@@ -224,10 +224,10 @@ def _counted(kernels, fn):
     return out, {kern.__name__: kern.launches for kern in kernels}
 
 
-def _routes(det) -> dict:
-    """The refine levels a detector ran per route since its counters were
-    last cleared."""
-    return {r: det.counters[f"refine.{r}"] for r in ("window", "maps")}
+def _steps(det) -> dict:
+    """The class steps and the overflow re-runs among them that a detector
+    ran since its counters were last cleared."""
+    return {c: det.counters[c] for c in ("steps", "reruns")}
 
 
 def _i64(t: torch.Tensor) -> torch.Tensor:
@@ -601,17 +601,20 @@ def dense_phase(card: str) -> tuple[list, dict]:
             or mr["mr_err"] or chain8_err):
         raise AssertionError("a dense-path kernel disagrees")
 
-    # 3. the dense path through the kernels
-    kernels = (quant_spread, chain_scores, refine_windows, coarse_maps,
-               map_refine, extract_counted, count_prefix, coarse_scores)
+    # 3. the dense path through the kernels: the re-run refines through
+    # the window, so no level maps
+    kernels = (quant_spread, chain_scores, refine_windows, extract_counted,
+               count_prefix, coarse_scores, coarse_maps, map_refine)
     det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(scene, THRESHOLD))
-    print(f"dense path: launches {launches}; refine routes "
-          f"{_routes(det)}; {len(got)} matches")
-    if not all(launches[fn.__name__] for fn in kernels[:-1]) \
-            or launches["coarse_scores"]:
-        raise AssertionError(f"the dense path missed a kernel or scored "
-                             f"from scratch: {launches}")
+    print(f"dense path: launches {launches}; {_steps(det)}; {len(got)} "
+          f"matches")
+    if not all(launches[fn.__name__] for fn in kernels[:5]) \
+            or any(launches[fn.__name__] for fn in kernels[5:]) \
+            or _steps(det) != {"steps": 2, "reruns": 1}:
+        raise AssertionError(f"the dense path missed a kernel, scored "
+                             f"from scratch, built level maps or did not "
+                             f"re-run once: {launches}, {_steps(det)}")
     if _keys(got) != golden["matches"]:
         raise AssertionError(f"dense B=1 differs from the JAX golden: "
                              f"{len(got)} vs {len(golden['matches'])}")
@@ -822,16 +825,16 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     Returns the path's kernel records and its report."""
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import (
-        _CAND_BUCKETS, _batch_pyramid)
+        _batch_pyramid, candidate_cap)
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
-        coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
+        coarse_maps, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.extract import (
         count_prefix, extract_counted)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
-        map_refine, map_refine_plain)
+        map_refine)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
@@ -899,16 +902,16 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(frame, threshold,
                                                         mask=mask))
-    routes = _routes(det)
-    print(f"{name}: launches {launches}; refine routes {routes}; "
-          f"{len(got)} matches")
+    steps = _steps(det)
+    print(f"{name}: launches {launches}; {steps}; {len(got)} matches")
     need = ["quant_spread", "coarse_scores", "refine_windows",
             "extract_counted", "count_prefix", "pyr_down", "linear_memories"]
-    if routes.get("maps"):
-        need += ["coarse_maps", "map_refine"]
-    if not all(launches[n] for n in need) or launches["chain_scores"]:
+    if not all(launches[n] for n in need) or any(
+            launches[n] for n in ("chain_scores", "coarse_maps",
+                                  "map_refine")):
         raise AssertionError(f"{name}: a kernel of the path was not "
-                             f"launched, or the chain was: {launches}")
+                             f"launched, or the chain or the map route "
+                             f"was: {launches}")
     check(got)
     print(f"{name}: the match list equals its "
           f"{'C++' if name == 'case16' else 'JAX'} golden ({len(got)} "
@@ -918,34 +921,20 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
     e2e_ms = _time_ms(lambda: det.match(frame, threshold, mask=mask), 10)
     rerun = ()
     if int(n_above[0]) > 256:
-        re_cap = next(c for c in _CAND_BUCKETS if c >= int(n_above[0]))
-        if routes.get("maps"):
-            mr = _map_route_check(lms, banks, sizes, thr, re_cap, None,
-                                  n_ori)
-            rerun = (
-                (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
-                 mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
-                 lambda: coarse_maps_plain(*mr["maps_args"]),
-                 mr["maps_shape"],
-                 _coarse_work(*mr["maps_args"], counted=False)),
-                (map_refine, "map_refine.cu", "refine_pallas.py:154",
-                 mr["mr_err"], lambda: map_refine(*mr["mr_args"]),
-                 lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
-                 mr["mr_work"]))
-        else:
-            rk, rx, ry, _, rvalid, _ = coarse_extract(
-                lms[1], banks[1], T1, sizes[1], thr, re_cap, None, n_ori)
-            rwx, rwy = window_origin(banks[0].width, banks[0].height,
-                                     T[0], sizes[0], rk, rx, ry)
-            re_args = (lms[0], banks[0], T[0], sizes[0], rk, rwx, rwy,
-                       rvalid, n_ori)
-            rerun = ((refine_windows, "refine.cu", "refine_pallas.py:67",
-                      _max_abs_err(zip(refine_windows(*re_args),
-                                       refine_windows_plain(*re_args[:-1]))),
-                      lambda: refine_windows(*re_args),
-                      lambda: refine_windows_plain(*re_args[:-1]),
-                      f"C={re_cap} N={N0} ({int(rvalid.sum())} live)",
-                      _refine_work(lms[0], banks[0], rk, rvalid)),)
+        re_cap = candidate_cap(int(n_above[0]))
+        rk, rx, ry, _, rvalid, _ = coarse_extract(
+            lms[1], banks[1], T1, sizes[1], thr, re_cap, None, n_ori)
+        rwx, rwy = window_origin(banks[0].width, banks[0].height,
+                                 T[0], sizes[0], rk, rx, ry)
+        re_args = (lms[0], banks[0], T[0], sizes[0], rk, rwx, rwy,
+                   rvalid, n_ori)
+        rerun = ((refine_windows, "refine.cu", "refine_pallas.py:67",
+                  _max_abs_err(zip(refine_windows(*re_args),
+                                   refine_windows_plain(*re_args[:-1]))),
+                  lambda: refine_windows(*re_args),
+                  lambda: refine_windows_plain(*re_args[:-1]),
+                  f"C={re_cap} N={N0} ({int(rvalid.sum())} live)",
+                  _refine_work(lms[0], banks[0], rk, rvalid)),)
         print(f"{name}: overflow re-run at cap {re_cap}: "
               + ", ".join(f"{r[0].__name__} [{r[6]}] vs plain max_abs_err "
                           f"{r[3]}" for r in rerun))
@@ -980,12 +969,10 @@ def mode_path_phase(name: str, card: str) -> tuple[list, dict]:
               f"plain {plain_ms:.4f} ms, bound "
               f"{records[-1]['bound_ms']:.4f} ms "
               f"({records[-1]['bound_by']}) on {card}")
-    if routes.get("maps") and rerun:
-        _add_device_ms(records, mr)
     print(f"time e2e {name} B=1 ({mode}, {len(pyramids)} templates, "
           f"{frame.shape[1]}x{frame.shape[0]}): {e2e_ms:.4f} ms/frame on "
           f"{card}")
-    return records, {"launches": launches, "refine_routes": routes,
+    return records, {"launches": launches, "steps": steps,
                      "n_matches": len(got), "n_above": int(n_above[0]),
                      "coarse_K": K, "coarse_N": N, "M": M1, "level0_N": N0,
                      "e2e_b1_ms": e2e_ms}
@@ -1081,9 +1068,11 @@ def train_phase(card: str) -> tuple[dict, dict]:
                map_refine)
     got, launches = _counted(
         kernels, lambda: det.match(_scene(golden["config"]), THRESHOLD))
-    if not all(launches.values()):
-        raise AssertionError(f"trained flagship: a kernel was not launched: "
-                             f"{launches}")
+    # the frame re-runs, through the window: no level maps
+    if not all(launches[fn.__name__] for fn in kernels[:3]) \
+            or launches["coarse_maps"] or launches["map_refine"]:
+        raise AssertionError(f"trained flagship: a kernel was not launched, "
+                             f"or the map route was: {launches}")
     if _keys(got) != golden["matches"]:
         raise AssertionError("the port-trained rot1000x63 bank's flagship "
                              "list differs from the e2e1000 golden")
@@ -1211,7 +1200,7 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
     dense: rot10000x63}, trained by phase 8, on the flagship frame at
     threshold 85, in ONE merged step (cap min(256 * 3, 4096)) and its
     re-run. Its kernels against their twins at the merged bank's shapes;
-    the merged bank's coarse route, re-run cap and refine routes; the
+    the merged bank's coarse route, re-run cap and class steps; the
     path's launches; B=1 equal to the union of the three single-class
     lists and, per class, bench and dense equal to the e2e1000 and
     e2e10000 goldens; B=8 equal to B=1 frame by frame; as_matches=False at
@@ -1219,15 +1208,15 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
     valid entries. Timed at B=1 and B=8."""
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import (
-        _CAND_BUCKETS, _MERGED_MAX_CAP, _batch_pyramid, _sort_dedup)
+        _batch_pyramid, _sort_dedup, candidate_cap, merged_cap)
     from shape_based_matching_tpu_torch.ops.cuda.chain import (
         chain_scores, chain_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
-        coarse_maps, coarse_maps_plain, coarse_scores, coarse_scores_plain)
+        coarse_maps, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread)
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
-        map_refine, map_refine_plain)
+        map_refine)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
         refine_windows, refine_windows_plain)
     from shape_based_matching_tpu_torch.ops.similarity import (
@@ -1250,7 +1239,7 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
     sizes = det._level_sizes(scene.shape)
     plan = det._get_chain(group, sizes[1])
     setup_s = time.perf_counter() - t0
-    cap = min(256 * len(REGISTRY), _MERGED_MAX_CAP)
+    cap = merged_cap(256, len(REGISTRY))
     thr = torch.tensor(THRESHOLD, dtype=torch.float32, device=dev)
     lms = _batch_pyramid(torch.from_numpy(scene[None]).to(dev),
                          det.T_at_level, det.pyramid_levels,
@@ -1287,7 +1276,7 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
     w_err = _max_abs_err(zip(refine_windows(*w_args),
                              refine_windows_plain(*w_args)))
     n_above = int(n_above[0])
-    re_cap = next((c for c in _CAND_BUCKETS if c >= n_above), n_above)
+    re_cap = candidate_cap(n_above)
     print(f"multiclass: merged bank {group} K={K} (coarse N={N}, level-0 "
           f"N={N0}) built and planned in {setup_s:.3f} s; coarse route "
           f"{route}, vs plain max_abs_err {c_err}; window refine at cap "
@@ -1297,35 +1286,36 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
         raise AssertionError("multiclass: a kernel disagrees with its twin")
     rerun = ()
     if n_above > cap:
-        mr = _map_route_check(lms, banks, sizes, thr, re_cap, plan)
-        if mr["maps_err"] or mr["mr_err"]:
+        rk, rx, ry, _, rvalid, _ = coarse_extract(
+            lms[1], banks[1], T1, sizes[1], thr, re_cap, plan)
+        rwx, rwy = window_origin(banks[0].width, banks[0].height,
+                                 T_LEVELS[0], sizes[0], rk, rx, ry)
+        re_args = (lms[0], banks[0], T_LEVELS[0], sizes[0], rk, rwx, rwy,
+                   rvalid)
+        re_err = _max_abs_err(zip(refine_windows(*re_args),
+                                  refine_windows_plain(*re_args)))
+        if re_err:
             raise AssertionError("multiclass: a re-run kernel disagrees")
-        rerun = (
-            (coarse_maps, "coarse.cu", "similarity_pallas.py:431",
-             mr["maps_err"], lambda: coarse_maps(*mr["maps_args"]),
-             lambda: coarse_maps_plain(*mr["maps_args"]), mr["maps_shape"],
-             _coarse_work(*mr["maps_args"], counted=False)),
-            (map_refine, "map_refine.cu", "refine_pallas.py:154",
-             mr["mr_err"], lambda: map_refine(*mr["mr_args"]),
-             lambda: map_refine_plain(*mr["mr_args"]), mr["mr_shape"],
-             mr["mr_work"]))
+        rerun = ((refine_windows, "refine.cu", "refine_pallas.py:67",
+                  re_err, lambda: refine_windows(*re_args),
+                  lambda: refine_windows_plain(*re_args),
+                  f"C={re_cap} N={N0} ({int(rvalid.sum())} live)",
+                  _refine_work(lms[0], banks[0], rk, rvalid)),)
 
     # the path through the kernels
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
                coarse_maps, map_refine)
     det.counters.clear()
     got, launches = _counted(kernels, lambda: det.match(scene, THRESHOLD))
-    routes = _routes(det)
-    print(f"multiclass: launches {launches}; refine routes {routes}; "
-          f"{len(got)} matches")
+    steps = _steps(det)
+    print(f"multiclass: launches {launches}; {steps}; {len(got)} matches")
     need = ["quant_spread", c_fn.__name__, "refine_windows"]
-    if routes.get("maps"):
-        need += ["coarse_maps", "map_refine"]
     other = "coarse_scores" if plan is not None else "chain_scores"
-    if not all(launches[n] for n in need) or launches[other]:
+    if not all(launches[n] for n in need) or any(
+            launches[n] for n in (other, "coarse_maps", "map_refine")):
         raise AssertionError(f"multiclass: a kernel of the path was not "
-                             f"launched, or another coarse route ran: "
-                             f"{launches}")
+                             f"launched, or another coarse route or the "
+                             f"map route ran: {launches}")
     singles = {c: det.match(scene, THRESHOLD, class_ids=[c])
                for c in REGISTRY}
     union = _sort_dedup([m for c in REGISTRY for m in singles[c]])
@@ -1385,8 +1375,6 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
               f"ms, plain {plain_ms:.4f} ms, bound "
               f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})"
               f" on {card}")
-    if rerun:
-        _add_device_ms(records, mr)
     e2e_ms = _time_ms(lambda: det.match(scene, THRESHOLD), 10)
     per_class_ms = _time_ms(lambda: [det.match(scene, THRESHOLD,
                                                class_ids=[c])
@@ -1399,7 +1387,7 @@ def multiclass_phase(trained: dict, card: str) -> tuple[list, dict]:
           f"{BATCH * 1e3 / b8_ms:.1f} frames/s on {card}")
     return records, {"coarse_route": route, "K": K, "coarse_N": N,
                      "level0_N": N0, "cap": cap, "n_above": n_above,
-                     "rerun_cap": re_cap, "refine_routes": routes,
+                     "rerun_cap": re_cap, "steps": steps,
                      "launches": launches, "n_matches": len(got),
                      "setup_s": setup_s, "e2e_b1_ms": e2e_ms,
                      "per_class_b1_ms": per_class_ms,
@@ -1754,13 +1742,13 @@ def production_phase(card: str) -> tuple[list, dict]:
     got, launches = _counted(kernels,
                              lambda: det.match_icp(frame, thr_f, **kw))
     need = ["quant_spread", "coarse_scores", "refine_windows", "icp_steps"]
-    if golden["overflow"]:
-        need += ["coarse_maps", "map_refine"]
-    if (not all(launches[n] for n in need) or launches["chain_scores"]
+    if (not all(launches[n] for n in need)
+            or any(launches[n] for n in ("chain_scores", "coarse_maps",
+                                         "map_refine"))
             or launches["icp_steps"] != 1):
         raise AssertionError(f"production: a kernel of the path was not "
-                             f"launched, or the chain was, or icp.cu not "
-                             f"once: {launches}")
+                             f"launched, or the chain or the map route "
+                             f"was, or icp.cu not once: {launches}")
     pose_dev = _pose_check(got, golden["entries"], "match_icp")
     print(f"production: match_icp equals the production_icp golden "
           f"({len(got)} entries, {golden['path']} path: cap "
@@ -2189,21 +2177,22 @@ def cli_phase(trained: dict, card: str) -> dict:
                                      f"from the trained ones")
         kernels = (quant_spread, coarse_scores, chain_scores,
                    refine_windows, coarse_maps, map_refine)
-        # the kernels each path must launch
+        # the kernels each path must launch (a re-run refines through the
+        # window too, so none launches the map route's)
         need = {"rot1000x63": {"quant_spread", "coarse_scores",
-                               "refine_windows", "coarse_maps",
-                               "map_refine"},
+                               "refine_windows"},
                 "rot10000x63": {"quant_spread", "chain_scores",
-                                "refine_windows", "coarse_maps",
-                                "map_refine"},
+                                "refine_windows"},
                 "rot1000x128": {"quant_spread", "coarse_scores",
                                 "refine_windows"}}
 
         def launched(run, cid: str, what: str):
             out, counts = _counted(kernels, run)
-            if any(not counts[k] for k in need[cid]):
+            if any(not counts[k] for k in need[cid]) \
+                    or counts["coarse_maps"] or counts["map_refine"]:
                 raise AssertionError(f"{what}: a kernel of the path was not "
-                                     f"launched: {counts}")
+                                     f"launched, or the map route was: "
+                                     f"{counts}")
             report.setdefault("launches", {})[what] = counts
             return out
 
@@ -2955,7 +2944,7 @@ def oracle_phase(card: str) -> dict:
 
     1. ``Detector.match`` against ``oracle.match_class`` as distinct
        (template, x, y, float32 bits) sets on the flagship (rows 1, 3, 8;
-       its re-run at cap 1024 takes the map route, rows 4 and 9),
+       it re-runs at cap 1024),
        wide1000x128, masked360, e2e360_16ori and color1000; on each path
        the card's linear memories at both levels and every template's
        coarse scores and live counts against the oracle's, and on the
@@ -3049,17 +3038,15 @@ def oracle_phase(card: str) -> dict:
                 f"{name}: Detector.match differs from oracle.match_class: "
                 f"{len(got_set)} vs {len(want_set)} matches, "
                 f"{sorted(set(got_set) ^ set(want_set))[:5]}")
-        _launched(launches, ("quant_spread", "coarse_scores")
-                  + (("coarse_maps", "map_refine") if name == "e2e1000"
-                     else ()), name)
-        if name == "e2e1000" and not det.counters["refine.maps"]:
-            raise AssertionError("e2e1000: the re-run did not take the map "
-                                 "route")
+        _launched(launches, ("quant_spread", "coarse_scores",
+                             "refine_windows"), name)
+        if name == "e2e1000" and not det.counters["reruns"]:
+            raise AssertionError("e2e1000: the frame did not re-run")
         out[name] = _oracle_line(
             f"{name} Detector.match vs match_class", len(got_set),
             "matches", oracle_s, card_s,
-            f" (oracle list {len(want)}, launches {launches}, refine "
-            f"routes {_routes(det)})")
+            f" (oracle list {len(want)}, launches {launches}, "
+            f"{_steps(det)})")
     for seed, variant in torch_fuzz.FUZZ_CASES + ((77, "merged"),):
         if variant == "merged":
             det, scene = torch_fuzz.merged_case(DEVICE)
@@ -3191,14 +3178,14 @@ EXTRACT_FLAGSHIP = ("flagship step", f"flagship B={BATCH}",
                     "flagship re-run")
 MAX_RERUN_GB = 8.0  # an overflow re-run's peak device memory, at most
 # the overflow re-runs of Detector.match with rot10000x63: (label, frame,
-# threshold, held to phase 15's tiles, more distinct candidate templates
-# than one slab). The 4096^2 frame has 16,460 candidates over 661
+# threshold, held to phase 15's tiles). The 4096^2 frame has 16,460
+# candidates over 661
 # templates at 85 and 88,074 over 3,752 at 60 (past the 65,536 bucket:
 # cap = n_above); the flagship frame 19,008 over 2,755 at 60 (chain rows).
 # extract.cu is timed at the 4096^2 re-runs' caps
-OVERFLOW_RUNS = (("4096^2 rot10000x63", "huge", THRESHOLD, True, False),
-                 ("4096^2 rot10000x63 at 60", "huge", 60.0, False, True),
-                 ("1024^2 rot10000x63 at 60", "flagship", 60.0, False, True))
+OVERFLOW_RUNS = (("4096^2 rot10000x63", "huge", THRESHOLD, True),
+                 ("4096^2 rot10000x63 at 60", "huge", 60.0, False),
+                 ("1024^2 rot10000x63 at 60", "flagship", 60.0, False))
 OVERFLOW_TIMED = tuple(r[0] for r in OVERFLOW_RUNS[:2])
 
 
@@ -3225,18 +3212,17 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
     2. ``Detector.match`` with rot10000x63 at the default cap on
        ``OVERFLOW_RUNS``: phase 15's 4096^2 frame at threshold 85 and at
        60, and the flagship frame at 60. Each overflows 256 and re-runs
-       at the 65,536 bucket (at 4096^2 and 60, past it: cap = n_above)
-       through the map route, its level maps built in slabs of at most
-       ``_MAP_SLAB`` templates. extract.cu is first held to its twin on
-       the run's own S at every cap the run uses: the first step's 256,
-       the re-run's, and the cap that holds every candidate. The
+       at the 65,536 bucket (at 4096^2 and 60, past it: cap = n_above),
+       refining through the window. extract.cu is first held to its twin
+       on the run's own S at every cap the run uses: the first step's
+       256, the re-run's, and the cap that holds every candidate. The
        kernels' counts are zeroed just before the match and read just
-       after (one map build and one map refine a slab); the list must
+       after (two window refines, no level maps); the list must
        equal the one at ``_cap_holding(n_above)`` with no re-run (and,
        at 4096^2 and 85, phase 15's 4 tiles' count), and the re-run's
        peak device memory must stay under ``MAX_RERUN_GB``. Peak GB and
-       ms of both runs, the re-run cap, n_distinct, D, the slabs and the
-       planner's decision are printed.
+       ms of both runs, the re-run cap and the planner's decision are
+       printed.
     3. The extraction's records at ``EXTRACT_TIMED``' shapes and the
        4096^2 re-runs' caps (65,536 at 85; n_above at 60): the whole
        ``extract_counted`` call and ``count_prefix`` alone (CUDA events,
@@ -3247,7 +3233,7 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
        frame's precomputed [B, K, M] live mask (CUB's stream compaction
        of the same cells)."""
     from shape_based_matching_tpu_torch import Detector
-    from shape_based_matching_tpu_torch.models.detector import _CAND_BUCKETS
+    from shape_based_matching_tpu_torch.models.detector import candidate_cap
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_scores)
@@ -3258,8 +3244,7 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import map_refine
     from shape_based_matching_tpu_torch.ops.cuda.refine import refine_windows
     from shape_based_matching_tpu_torch.ops.similarity import (
-        _D_BUCKETS, _MAP_SLAB, _flat_offsets, _positions,
-        _rmin_for_threshold, coarse_extract, distinct_templates)
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_extract)
     from shape_based_matching_tpu_torch.utils.profiling import CALLS
     from shape_based_matching_tpu_torch.utils.synthetic import huge_frame
 
@@ -3426,17 +3411,15 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
     kernels = (quant_spread, coarse_scores, chain_scores, refine_windows,
                coarse_maps, map_refine, extract_counted, count_prefix)
     det, cid, _, _ = detector("rot10000x63")
-    K = det._get_banks(cid)[0].fx.shape[0]
-    for label, which, thr, tiles, over_slab in OVERFLOW_RUNS:
+    for label, which, thr, tiles in OVERFLOW_RUNS:
         frame = frames[which][0]
         args, n_above, chain, _ = coarse_args(det, cid, frame[None], thr)
-        re_cap = next((c for c in _CAND_BUCKETS if c >= n_above), n_above)
+        re_cap = candidate_cap(n_above)
         hold_cap = _cap_holding(n_above)
         rows = []
         for cap in (256, re_cap, hold_cap):
             got, shape = check(f"{label} cap {cap}", (*args, cap), chain)
             if cap == re_cap:
-                n_distinct = int(distinct_templates(got[0], got[4], K, K)[2])
                 if label in OVERFLOW_TIMED:
                     # launches from the match below
                     rows = timed(f"{label} re-run", (*args, cap), got, shape,
@@ -3460,23 +3443,17 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
                         del mask
             del got
         del args
-        D = next((d for d in _D_BUCKETS if n_distinct <= d < K), K)
-        slabs = -(-n_distinct // _MAP_SLAB) if D > _MAP_SLAB else 1
-        if over_slab and not (n_distinct > _MAP_SLAB and slabs >= 2):
-            raise AssertionError(f"overflow re-run {label}: {n_distinct} "
-                                 f"distinct templates, {slabs} slab(s): the "
-                                 f"slabs did not engage")
         det.counters.clear()
         got, launches = _counted(kernels, lambda: det.match(frame, thr))
-        routes = _routes(det)
+        steps = _steps(det)
         _launched(launches, (
             "quant_spread", "chain_scores" if chain else "coarse_scores",
-            "refine_windows", "coarse_maps", "map_refine",
             "extract_counted", "count_prefix"), f"overflow re-run {label}")
-        if launches["coarse_maps"] != slabs \
-                or launches["map_refine"] != slabs:
-            raise AssertionError(f"overflow re-run {label}: {slabs} slabs "
-                                 f"expected, launches {launches}")
+        if launches["refine_windows"] != 2 or launches["coarse_maps"] \
+                or launches["map_refine"] or steps["reruns"] != 1:
+            raise AssertionError(f"overflow re-run {label}: one re-run and "
+                                 f"two window refines expected, {steps}, "
+                                 f"launches {launches}")
         for rec in rows:
             rec["launches"] = launches[rec["name"]]
 
@@ -3504,17 +3481,14 @@ def overflow_phase(trained: dict, card: str, tiles_matches: int | None,
                                  f"{runs['default']['peak_gb']:.2f} GB, "
                                  f"over {MAX_RERUN_GB} GB")
         out[label] = {"n_above": n_above, "rerun_cap": re_cap,
-                      "n_distinct": n_distinct, "D": D, "slabs": slabs,
-                      "map_slab": _MAP_SLAB, "chain": chain,
-                      "launches": launches, "routes": routes,
+                      "chain": chain, "launches": launches, "steps": steps,
                       "matches": len(got), "runs": runs}
         print(f"overflow re-run {label} (threshold {thr:g}): n_above "
-              f"{n_above}, re-run cap {re_cap}, n_distinct {n_distinct}, D "
-              f"{D}, {slabs} slab(s) of at most {_MAP_SLAB}, planner "
+              f"{n_above}, re-run cap {re_cap}, planner "
               f"{'engaged' if chain else 'declined'}; the list equals the "
               f"cap-{hold_cap} list ({len(got)} matches"
               f"{f'; phase 15 tiles {n_tiles}' if tiles else ''}); "
-              f"launches {launches}; refine routes {routes}")
+              f"launches {launches}; {steps}")
         for name, r in runs.items():
             print(f"time overflow {label} {name} cap {r['cap']}: "
                   f"{r['ms']:.4f} ms (host clock, mean of 3 warm calls), "
@@ -3657,7 +3631,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import (
-        _CAND_BUCKETS, _batch_pyramid)
+        _batch_pyramid, candidate_cap)
     from shape_based_matching_tpu_torch.ops.cuda import build
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
@@ -3765,9 +3739,10 @@ def main() -> None:
     print(f"K3 refine vs plain: max_abs_err {k3_err}, "
           f"{int(valid.sum())} live of 256 candidates (n_above "
           f"{int(n_above[0])}), N={banks[0].fx.shape[1]}")
-    # the frame overflows the cap of 256: its re-run at 1024 takes the
-    # map route
-    re_cap = next(c for c in _CAND_BUCKETS if c >= int(n_above[0]))
+    # the frame overflows the cap of 256: the map route's kernels at the
+    # shapes of its re-run at 1024 (the re-run itself refines through the
+    # window)
+    re_cap = candidate_cap(int(n_above[0]))
     mr = _map_route_check(lms, banks, sizes, thr, re_cap)
     if (k1_err or k2_err or k3_err or mr["maps_err"] or mr["mr_err"]
             or pd_err or lm_err):
@@ -3778,21 +3753,21 @@ def main() -> None:
     batch = np.stack([synthetic_scene(cfg["height"], cfg["width"], templ,
                                       n_instances=cfg["n_instances"],
                                       seed=s) for s in seeds])
-    kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, extract_counted, count_prefix, pyr_down,
-               linear_memories, chain_scores)
+    kernels = (quant_spread, coarse_scores, refine_windows, extract_counted,
+               count_prefix, pyr_down, linear_memories, chain_scores,
+               coarse_maps, map_refine)
     det.counters.clear()
     (got1, got8), launches = _counted(
         kernels, lambda: (det.match(scene, THRESHOLD),
                           det.match_batch(batch, THRESHOLD)))
-    print(f"main path: launches {launches}; refine routes "
-          f"{_routes(det)}; B=1 {len(got1)} matches, "
-          f"B=8 {[len(m) for m in got8]} matches")
-    # the planner declines this sparse bank: no chain
-    if not all(launches[fn.__name__] for fn in kernels[:-1]) \
-            or launches["chain_scores"]:
-        raise AssertionError(f"a kernel was not launched, or the chain "
-                             f"was: {launches}")
+    print(f"main path: launches {launches}; {_steps(det)}; B=1 "
+          f"{len(got1)} matches, B=8 {[len(m) for m in got8]} matches")
+    # the planner declines this sparse bank: no chain; every re-run
+    # refines through the window: no level maps
+    if not all(launches[fn.__name__] for fn in kernels[:-3]) \
+            or any(launches[fn.__name__] for fn in kernels[-3:]):
+        raise AssertionError(f"a kernel was not launched, or the chain or "
+                             f"the map route was: {launches}")
     if _keys(got1) != golden["matches"]:
         raise AssertionError(f"B=1 differs from the JAX golden: "
                              f"{len(got1)} vs {len(golden['matches'])} "

@@ -798,9 +798,6 @@ def cmd_info(args) -> int:
           f"{'window_kernel' if G0 == 1 and CB == 1 else 'cluster_kernel'}"
           f" ({CB} candidate(s) a block, {G0} feature group(s) of "
           f"{chunk0})")
-    routes = ["window" if det._is_pathological("bench", l, sizes[l])
-              else "map" for l in range(len(T) - 1)]
-    print(f"  re-run at cap 1024: refine route per level {routes}")
 
     if args.dispatch:
         _dispatch_audit(dev)

@@ -9,9 +9,9 @@ in one download, the eligible pixels in row-major order and the
 magnitude, label and angle at the strong ones; the host replays the
 greedy passes (``models/training.py``). ``add_template`` is the same
 sweep at B=1; ``add_template(s)_rotate`` derive rotated templates without
-re-extracting features. Every add drops the class's cached banks, max
-dims and chain plans, every merged bank that holds the class, and what
-the sharded paths placed on their devices (``_shard_cached``).
+re-extracting features. Every add drops the class's cached banks and
+chain plans, every merged bank that holds the class, and what the
+sharded paths placed on their devices (``_shard_cached``).
 
 **Matching.** Frames are gray ``[H, W]`` or BGR ``[H, W, 3]`` uint8,
 optionally with a uint8 mask each, matched with 8 orientations or the
@@ -29,14 +29,17 @@ lists more than one class, all of them in one merged bank whose
 templates map back through ``(class_of_k, tid_of_k)`` (the JAX
 package's ``_get_merged_banks``). The candidate cap is static; a frame
 whose exact candidate count ``n_above`` exceeds it re-runs the same step
-at the smallest ``_CAND_BUCKETS`` cap that holds all of them (or at
-``n_above`` past the last bucket), so the match list is always complete.
+alone at the cap ``candidate_cap`` picks, the smallest ``_CAND_BUCKETS``
+cap that holds all of them (or ``n_above`` past the last bucket), so the
+match list is always complete. ``match(max_candidates=)`` runs the same
+step, download and re-run, at caps bounded by its limit.
 
-Refine routes follow the JAX package's ``_refine_mode`` / ``_refine_level``
-(``detector.py:1034-1051``, ``:1244-1296`` there): the first step takes the
-window kernel; the re-run, at a cap of 1024 or more on a bank that is not
-pathological, takes the map route (level maps of the distinct candidate
-templates, then the map-window kernel), and the window otherwise.
+Every refine step, the first step's and a re-run's, takes the window
+kernel (``refine_candidates``). The JAX package's re-run takes its map
+route from a cap of 1024 on (``_refine_level`` there), a threshold set by
+the TPU's costs; on the H100 the window was the faster at every re-run
+cap, and both give the same bits. The map route itself,
+``ops/similarity.refine_by_maps``, stays as the port of its two kernels.
 
 **Spans and counters.** ``match`` and ``match_batch`` each open one root
 span (``sbm.match`` / ``sbm.match_batch``) over ``sbm.prepare`` (checks,
@@ -47,8 +50,8 @@ level), ``sbm.download``, a ``sbm.rerun`` a re-run frame, ``sbm.list``
 and ``sbm.sort_dedup`` (``utils/profiling.span``: no-ops unless a
 recording or torch.profiler runs). ``Detector.counters`` counts on the
 host, always: frames, steps, re-runs, candidates (each listed frame's
-``n_above``, already on the host), matches returned, refine levels per
-route, and the bank and chain-plan cache misses.
+``n_above``, already on the host), matches returned, and the bank and
+chain-plan cache misses.
 
 Trained templates and match results are bit-identical to the JAX
 package's ``Detector`` (template id, position and float32 similarity of
@@ -82,9 +85,10 @@ from ..ops.gradients import (quantized_orientations,
                              quantized_orientations_color,
                              quantized_orientations_gray)
 from ..ops.response import to_i32
+# refine_by_maps runs nowhere here: portbench/trace.py wraps it by this name
 from ..ops.similarity import (LevelBank, coarse_extract, coarse_route,
                               refine_by_maps, refine_candidates)
-from ..utils.convert import level_max_dims, pyramids_to_banks
+from ..utils.convert import pyramids_to_banks
 from ..utils.profiling import span
 from ..utils.yaml_io import (class_file_path, dump_opencv_yaml,
                              load_opencv_yaml)
@@ -112,19 +116,35 @@ class Match:
                 and self.class_id == rhs.class_id)
 
 
-# Candidate-capacity buckets: a frame that overflows the static cap re-runs
-# at the smallest bucket >= its true above-threshold count.
+# Candidate-capacity buckets (candidate_cap)
 _CAND_BUCKETS = (256, 1024, 4096, 16384, 65536)
-# The re-run takes the map route from this cap on: the JAX package's
-# ``_refine_level`` rule, kept so that both packages take the same routes.
-# It is not tuned to the GPU; chip_smoke.py times both routes at caps
-# 1024, 4096 and 16384.
-_MAP_MIN_CAP = 1024
-# A merged multi-class step shares one cap, cand_cap per class up to this
-# clamp (the JAX package's, detector.py:924 there).
+# The most candidates a merged multi-class step shares (merged_cap)
 _MERGED_MAX_CAP = 4096
 # Merged banks kept at once (device memory); the oldest goes first.
 _MERGED_CACHE = 8
+
+
+def candidate_cap(n_above: int, cells: int | None = None,
+                  limit: int | None = None) -> int:
+    """The candidate cap at which a step holds `n_above` candidates: the
+    smallest of ``_CAND_BUCKETS`` that holds them all, else n_above
+    itself. ``match(max_candidates=)`` passes a class's `cells` (K*M at
+    the top level) and its `limit`: the buckets then stop at cells (a
+    class of fewer cells has the one cap cells), each is clipped to
+    limit, and past the last the last one holds, so that the step keeps
+    its first candidates (the JAX package's ``_match_escalating``)."""
+    if cells is None:
+        return next((c for c in _CAND_BUCKETS if c >= n_above), n_above)
+    caps = [c for c in _CAND_BUCKETS if c <= cells] or [cells]
+    cap = next((c for c in caps if c >= n_above), caps[-1])
+    return cap if limit is None else min(cap, limit)
+
+
+def merged_cap(cand_cap: int, n_classes: int) -> int:
+    """The candidate cap that one step over the merged bank of `n_classes`
+    classes shares: cand_cap a class, up to ``_MERGED_MAX_CAP`` (the JAX
+    package's clamp, detector.py:924 there)."""
+    return min(int(cand_cap) * n_classes, _MERGED_MAX_CAP)
 
 
 def _sort_dedup(matches: list) -> list:
@@ -189,23 +209,21 @@ def _batch_pyramid(sources: torch.Tensor, T: tuple, levels: int,
 
 def _match_batch_class(lmflats: tuple, banks: list, threshold: torch.Tensor,
                        T: tuple, levels: int, sizes: tuple, cand_cap: int,
-                       chain: ChainPlan | None = None,
-                       map_levels: tuple = (), n_ori: int = 8):
+                       chain: ChainPlan | None = None, n_ori: int = 8):
     """matchClass for B frames (line2Dup.cpp:1160-1297): coarse scoring and
     candidate extraction at the top level (through `chain`, the coarse
-    bank's plan, when given), then refinement down to level 0, by the map
-    route at the levels in `map_levels` and by the window elsewhere.
-    Returns (k, x, y, score, valid) each [B, cand_cap] and n_above [B]."""
+    bank's plan, when given), then refinement through the window down to
+    level 0. Returns (k, x, y, score, valid) each [B, cand_cap] and
+    n_above [B]."""
     with span("sbm.coarse", route="chain" if chain is not None else "plain"):
         k, x, y, sc, valid, n_above = coarse_extract(
             lmflats[-1], banks[-1], T[-1], sizes[-1], threshold, cand_cap,
             chain, n_ori)
     for l in range(levels - 2, -1, -1):
-        maps = l in map_levels
-        with span("sbm.refine", level=l, route="maps" if maps else "window"):
-            refine = refine_by_maps if maps else refine_candidates
-            k, x, y, sc, valid = refine(lmflats[l], banks[l], T[l], sizes[l],
-                                        k, x, y, valid, threshold, n_ori)
+        with span("sbm.refine", level=l):
+            k, x, y, sc, valid = refine_candidates(
+                lmflats[l], banks[l], T[l], sizes[l], k, x, y, valid,
+                threshold, n_ori)
     return k, x, y, sc, valid, n_above
 
 
@@ -389,10 +407,9 @@ class Detector:
         self.patch_2843 = bool(patch_2843)
         self.class_templates: dict[str, list[TemplatePyramid]] = {}
         # per bank group -- a class id, or the sorted tuple of the classes
-        # of a merged bank: its banks, its (max width, max height) per
-        # level on the host, and its chain plans keyed (group, size)
+        # of a merged bank: its banks, and its chain plans keyed (group,
+        # size)
         self._banks: dict[object, list] = {}
-        self._max_dims: dict[object, list] = {}
         self._chain_plans: dict[tuple, ChainPlan | None] = {}
         # merged group -> (class_of_k, tid_of_k), at most _MERGED_CACHE
         self._merged: dict[tuple, tuple] = {}
@@ -402,8 +419,7 @@ class Detector:
         # what the match path did, always on (host counts, no device
         # read): "frames", "steps" (class steps, re-runs included),
         # "reruns", "candidates" (the sum of each listed frame's
-        # n_above), "matches" (in the lists returned), "refine.window" /
-        # "refine.maps" (refine levels run per route), and the cache
+        # n_above), "matches" (in the lists returned), and the cache
         # misses "bank_builds" and "chain_plans"
         self.counters: Counter = Counter()
         # (class_id, template_id) -> level-0 feature (x, y), [n, 2] float32
@@ -573,9 +589,8 @@ class Detector:
     # ------------------------------------------------------------------
 
     def _invalidate(self, class_id: str) -> None:
-        """Drop every cache that holds the class: its banks, max dims and
-        chain plans, every merged bank it is part of, and its ICP
-        points."""
+        """Drop every cache that holds the class: its banks and chain
+        plans, every merged bank it is part of, and its ICP points."""
         for group in [g for g in self._banks
                       if g == class_id or (isinstance(g, tuple)
                                            and class_id in g)]:
@@ -585,7 +600,6 @@ class Detector:
 
     def _drop_group(self, group) -> None:
         self._banks.pop(group, None)
-        self._max_dims.pop(group, None)
         self._merged.pop(group, None)
         for cache in (self._chain_plans, self._sharded):
             for key in [k for k in cache if k[0] == group]:
@@ -603,8 +617,6 @@ class Detector:
             banks = pyramids_to_banks(pyramids, self.pyramid_levels,
                                       self.device, self.num_orientations)
             self._banks[group] = banks
-            self._max_dims[group] = level_max_dims(pyramids,
-                                                   self.pyramid_levels)
         return banks
 
     def _get_merged(self, order: tuple) -> tuple:
@@ -614,9 +626,8 @@ class Detector:
         padded dead to the widest class's N, as ``pack_level_bank`` pads
         a short template. Returns (banks, class_of_k, tid_of_k): template
         k of the merged bank is template tid_of_k[k] of class
-        order[class_of_k[k]]. The max dims are the classes' own, kept on
-        the host. At most ``_MERGED_CACHE`` merged banks are kept; the
-        oldest goes first."""
+        order[class_of_k[k]]. At most ``_MERGED_CACHE`` merged banks are
+        kept; the oldest goes first."""
         if order in self._merged:
             return (self._banks[order],) + self._merged[order]
         per_class = [self._get_banks(c) for c in order]
@@ -638,9 +649,6 @@ class Detector:
         while len(self._merged) >= _MERGED_CACHE:
             self._drop_group(next(iter(self._merged)))
         self._banks[order] = banks
-        self._max_dims[order] = [
-            tuple(max(self._max_dims[c][l][i] for c in order)
-                  for i in range(2)) for l in range(self.pyramid_levels)]
         self._merged[order] = maps
         return (banks,) + maps
 
@@ -681,15 +689,6 @@ class Detector:
         if full not in self._sharded:
             self._sharded[full] = make()
         return self._sharded[full]
-
-    def _is_pathological(self, group, level: int, size_wh) -> bool:
-        """Whether a template of the group is wider or taller than the
-        level's image - 16T, where the border clamp inverts and features
-        fall off the image, so level maps no longer hold the windows."""
-        self._get_banks(group)
-        wmax, hmax = self._max_dims[group][level]
-        border = 16 * self.T_at_level[level]
-        return size_wh[0] - wmax < border or size_wh[1] - hmax < border
 
     def _quantized(self, src: np.ndarray):
         """Quantized orientations of one gray [H, W] or BGR [H, W, 3]
@@ -733,8 +732,8 @@ class Detector:
         at the candidate caps of ``_CAND_BUCKETS`` up to the class's K*M
         cells, each clipped to `max_candidates`: the first cap that holds
         every candidate, else the last, keeping the first candidates in
-        extraction order and warning (the JAX package's
-        ``_match_escalating``)."""
+        extraction order and warning (``candidate_cap``; the JAX
+        package's ``_match_escalating``)."""
         with span("sbm.match", B=1,
                   classes=len(class_ids or self.class_templates)):
             frames = _one(source)
@@ -742,42 +741,11 @@ class Detector:
             if max_candidates is None:
                 return self._match_batch(frames, threshold, class_ids,
                                          masks)[0]
-            return self._match_escalating(frames, masks, threshold,
-                                          class_ids, int(max_candidates))
-
-    def _match_escalating(self, frames, masks, threshold: float, class_ids,
-                          max_candidates: int) -> list[Match]:
-        """``match`` with `max_candidates`, inside its root span."""
-        lms, sizes, thr, class_ids = self._prepare(frames, masks, threshold,
-                                                   class_ids)
-        self.counters["frames"] += 1
-        out = []
-        for class_id in class_ids:
-            K = self._get_banks(class_id)[-1].fx.shape[0]
-            w, h = sizes[-1]
-            total = K * (w // self.T_at_level[-1]) * (h // self.T_at_level[-1])
-            caps = [min(c, max_candidates)
-                    for c in [c for c in _CAND_BUCKETS if c <= total]
-                    or [total]]
-            row = self._class_step(lms, class_id, thr, sizes, caps[0])[0]
-            n_above = int(row[-1])
-            self.counters["candidates"] += n_above
-            if n_above > caps[0]:
-                cap = next((c for c in caps if n_above <= c), caps[-1])
-                if n_above > cap:
-                    warnings.warn(
-                        f"candidate overflow: {n_above} above threshold, "
-                        f"cap {cap}; raise max_candidates for full parity")
-                if cap != caps[0]:
-                    with span("sbm.rerun", frame=0, n_above=n_above,
-                              cap=cap):
-                        self.counters["reruns"] += 1
-                        row = self._class_step(lms, class_id, thr, sizes,
-                                               cap, rerun=True)[0]
-            out.extend(self._matches(row, class_id))
-        out = _sort_dedup(out)
-        self.counters["matches"] += len(out)
-        return out
+            lms, sizes, thr, class_ids = self._prepare(frames, masks,
+                                                       threshold, class_ids)
+            self.counters["frames"] += 1
+            return self._match_groups(lms, sizes, thr, class_ids, None,
+                                      int(max_candidates))[0]
 
     def _prepare(self, sources, masks, threshold: float, class_ids):
         """Checks and uploads the frames and masks, builds their
@@ -822,9 +790,10 @@ class Detector:
 
         One class runs as one device step and one download. More than one
         class runs as ONE step over their merged bank at a shared cap of
-        min(cand_cap * n_classes, 4096); matches map back to their class
-        and template. A frame that overflows the cap re-runs its step at
-        the smallest ``_CAND_BUCKETS`` cap that holds every candidate.
+        min(cand_cap * n_classes, 4096) (``merged_cap``); matches map back
+        to their class and template. A frame that overflows the cap
+        re-runs its step at the smallest ``_CAND_BUCKETS`` cap that holds
+        every candidate (``candidate_cap``).
 
         ``as_matches=False`` returns {class_id: (k, x, y, score, valid,
         overflow)} per class instead: device tensors [B, cand_cap]
@@ -833,10 +802,9 @@ class Detector:
         re-runs an overflowing frame. `distinct_cap` is accepted so that
         the JAX package's callers run unchanged, and changes no list here
         or there: JAX re-runs a frame whose distinct refine templates
-        overflow it, and the port sizes the map route's D from the
-        distinct count itself (``ops/similarity.refine_by_maps``). So the
-        port's overflow flag never counts distinct templates, where the
-        JAX package's does past cand_cap 4096 (its map route)."""
+        overflow it on its map route, past cand_cap 4096, and the port
+        refines every step through the window, which has no distinct cap.
+        So the port's overflow flag never counts distinct templates."""
         del distinct_cap
         with span("sbm.match_batch", B=len(sources),
                   classes=len(class_ids or self.class_templates)):
@@ -858,27 +826,50 @@ class Detector:
                 out[class_id] = (k, x, y, sc, valid, n_above > cand_cap)
             return out
         if len(class_ids) > 1:
-            cap = min(int(cand_cap) * len(class_ids), _MERGED_MAX_CAP)
-            groups = [tuple(sorted(class_ids))]
-        else:
-            cap = int(cand_cap)
-            groups = class_ids
+            return self._match_groups(lms, sizes, thr,
+                                      [tuple(sorted(class_ids))],
+                                      merged_cap(cand_cap, len(class_ids)))
+        return self._match_groups(lms, sizes, thr, class_ids, int(cand_cap))
+
+    def _match_groups(self, lms: tuple, sizes: tuple, thr: torch.Tensor,
+                      groups: list, cap: int | None,
+                      limit: int | None = None) -> list[list[Match]]:
+        """The sorted, deduplicated Match list of each of the B frames of
+        `lms`: per bank group, one step at candidate cap `cap` and one
+        download; a frame whose n_above overflows the cap re-runs alone
+        (``sbm.rerun``) at ``candidate_cap``; then its valid candidates
+        become Matches. With `limit` (``match(max_candidates=)``; `cap`
+        None) each group's caps stop at its top level's K*M cells and at
+        `limit`, its first step runs at the smallest of them, and a frame
+        that overflows the last keeps its first candidates and warns."""
+        B = lms[0].shape[0]
         out: list[list[Match]] = [[] for _ in range(B)]
+        cells = None
         for group in groups:
+            if limit is not None:
+                K = self._get_banks(group)[-1].fx.shape[0]
+                (w, h), T = sizes[-1], self.T_at_level[-1]
+                cells = K * (w // T) * (h // T)
+                cap = candidate_cap(0, cells, limit)
             host = self._class_step(lms, group, thr, sizes, cap)
             for b in range(B):
                 row = host[b]
                 n_above = int(row[-1])
                 self.counters["candidates"] += n_above
                 if n_above > cap:
-                    re_cap = next((c for c in _CAND_BUCKETS if c >= n_above),
-                                  n_above)
-                    with span("sbm.rerun", frame=b, n_above=n_above,
-                              cap=re_cap):
-                        self.counters["reruns"] += 1
-                        row = self._class_step(
-                            tuple(f[b:b + 1] for f in lms), group, thr,
-                            sizes, re_cap, rerun=True)[0]
+                    re_cap = candidate_cap(n_above, cells, limit)
+                    if n_above > re_cap:
+                        warnings.warn(
+                            f"candidate overflow: {n_above} above threshold,"
+                            f" cap {re_cap}; raise max_candidates for full "
+                            f"parity")
+                    if re_cap > cap:
+                        with span("sbm.rerun", frame=b, n_above=n_above,
+                                  cap=re_cap):
+                            self.counters["reruns"] += 1
+                            row = self._class_step(
+                                tuple(f[b:b + 1] for f in lms), group, thr,
+                                sizes, re_cap, rerun=True)[0]
                 out[b].extend(self._matches(row, group))
         lists = [_sort_dedup(m) for m in out]
         self.counters["matches"] += sum(map(len, lists))
@@ -887,23 +878,14 @@ class Detector:
     def _step(self, lms: tuple, group, thr: torch.Tensor, sizes: tuple,
               cap: int, rerun: bool = False):
         """One device step of a bank group at candidate cap `cap`: (k, x,
-        y, score, valid) [B, cap] and n_above [B] on the device. The
-        first step refines through the window; an overflow re-run at a
-        cap of _MAP_MIN_CAP or more takes the map route at every level
-        whose bank is not pathological."""
+        y, score, valid) [B, cap] and n_above [B] on the device. `rerun`
+        marks an overflow re-run in its span."""
         with span("sbm.step", cap=cap, rerun=rerun):
-            levels = self.pyramid_levels - 1
-            maps = tuple(l for l in range(levels)
-                         if rerun and cap >= _MAP_MIN_CAP
-                         and not self._is_pathological(group, l, sizes[l]))
             self.counters["steps"] += 1
-            self.counters["refine.maps"] += len(maps)
-            self.counters["refine.window"] += levels - len(maps)
             return _match_batch_class(
                 lms, self._get_banks(group), thr, self.T_at_level,
                 self.pyramid_levels, sizes, cap,
-                self._get_chain(group, sizes[-1]), maps,
-                self.num_orientations)
+                self._get_chain(group, sizes[-1]), self.num_orientations)
 
     def _class_step(self, lms: tuple, group, thr: torch.Tensor,
                     sizes: tuple, cap: int, rerun: bool = False):

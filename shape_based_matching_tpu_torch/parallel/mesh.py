@@ -40,10 +40,10 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..models.detector import (_MERGED_MAX_CAP, _as_tensor, _batch_pyramid,
+from ..models.detector import (_as_tensor, _batch_pyramid,
                                _match_batch_class, _planar, _sort_dedup,
                                _strong_lower_bound, _sweep_inputs, _to_host,
-                               _train_levels)
+                               _train_levels, merged_cap)
 from ..models.icp import refine_frames
 from ..ops.chain_plan import plan_chain_sharded
 from ..ops.cuda.chain import plan_to_device
@@ -260,7 +260,7 @@ def multichip_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
                     k, x, y, sc, valid, n_above = _match_batch_class(
                         lms, bk, _threshold(threshold, dev), T_levels,
                         levels, sizes, cand_cap,
-                        None if chains is None else chains[d, t], (), n_ori)
+                        None if chains is None else chains[d, t], n_ori)
                     k = torch.where(valid, k + t * bk[-1].fx.shape[0], 0)
                     part = [k, x, y, sc, valid, n_above]
                     if return_scores:
@@ -283,8 +283,8 @@ def multichip_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
 def _group(detector, class_id, cand_cap: int) -> tuple:
     """(bank group, candidate cap) of a sharded call: one class as it is;
     several (None: every trained class) as one merged bank
-    (``Detector._get_merged``) at cap min(cand_cap * n, 4096), warning
-    when the clamp bites."""
+    (``Detector._get_merged``) at the detector's ``merged_cap``, warning
+    when its clamp bites."""
     if class_id is None:
         class_ids = detector.class_ids()
     elif isinstance(class_id, str):
@@ -297,7 +297,7 @@ def _group(detector, class_id, cand_cap: int) -> tuple:
         return class_ids[0], int(cand_cap)
     group = tuple(sorted(class_ids))
     detector._get_merged(group)
-    cap = min(int(cand_cap) * len(class_ids), _MERGED_MAX_CAP)
+    cap = merged_cap(cand_cap, len(class_ids))
     if cap < int(cand_cap) * len(class_ids):
         warnings.warn(
             f"merged multi-class cap clamped to {cap} (< cand_cap*"
@@ -501,7 +501,7 @@ def _local_refine(frames: torch.Tensor, lms: tuple, banks: list,
     candidate."""
     k, x, y, sc, valid, n_above = _match_batch_class(
         lms, banks, threshold, T_levels, len(T_levels), sizes, cand_cap,
-        chain, (), n_ori)
+        chain, n_ori)
     per = refine_frames(frames, weak_threshold,
                         {0: (k, x, y, sc, valid, n_above > cand_cap)},
                         {0: banks[0]}, top_c, iters, radius)[0]

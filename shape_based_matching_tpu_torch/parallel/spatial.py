@@ -29,8 +29,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..models.detector import (_CAND_BUCKETS, _batch_pyramid, _planar,
-                               _sort_dedup, _to_host)
+from ..models.detector import (_batch_pyramid, _planar, _sort_dedup,
+                               _to_host, candidate_cap)
 from ..ops.similarity import LevelBank, coarse_extract, refine_candidates
 from .mesh import (Mesh, _group, _grid, _on, _threshold, _warn_overflow,
                    mesh_devices, shard_banks, shard_chains)
@@ -163,8 +163,8 @@ def match_huge_frame(detector, image, threshold: float,
     ``default_halo``. A tile whose candidates overflow `cand_cap` warns
     and is not re-run (the JAX package's contract). With `cand_cap`
     None (the CLI's ``--spatial-shards``) the tiles run at a cap of 256
-    and, when one overflows it, again at the smallest of the detector's
-    candidate buckets that holds every tile's candidates, as
+    and, when one overflows it, again at the detector's
+    ``candidate_cap`` for the most candidates a tile holds, as
     ``Detector.match`` re-runs a frame."""
     if mesh is None:
         mesh = make_spatial_mesh()
@@ -207,7 +207,7 @@ def match_huge_frame(detector, image, threshold: float,
 
     row = run(cap)
     if cand_cap is None and row[-1] > cap:
-        cap = next((c for c in _CAND_BUCKETS if c >= row[-1]), int(row[-1]))
+        cap = candidate_cap(int(row[-1]))
         row = run(cap)
     _warn_overflow(int(row[-1]), cap)
     return _sort_dedup(detector._matches(row, group))

@@ -47,12 +47,3 @@ def pyramids_to_banks(pyramids, levels: int, device="cpu",
             raise ValueError(f"level {l}: feature labels outside 0..{n_ori - 1}"
                              f" (bank for another orientation count?)")
     return banks
-
-
-def level_max_dims(pyramids, levels: int) -> list[tuple[int, int]]:
-    """(max width, max height) of a class's templates at each pyramid level,
-    read on the host when the bank is built, so the refine route's
-    pathological-bank test needs no device read."""
-    return [(max((tp[l].width for tp in pyramids), default=0),
-             max((tp[l].height for tp in pyramids), default=0))
-            for l in range(levels)]

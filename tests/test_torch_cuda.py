@@ -39,8 +39,8 @@ from shape_based_matching_tpu_torch.ops.cuda.refine import (
     refine_windows, refine_windows_plain)
 from shape_based_matching_tpu_torch.ops.response import to_i32
 from shape_based_matching_tpu_torch.ops.similarity import (
-    _MAP_SLAB, LevelBank, _flat_offsets, _positions, _rmin_for_threshold,
-    gather_bank, pack_level_bank, refine_from_maps)
+    LevelBank, _flat_offsets, _positions, _rmin_for_threshold, gather_bank,
+    pack_level_bank, refine_from_maps)
 from shape_based_matching_tpu_torch.utils import synthetic
 from shape_based_matching_tpu_torch.oracle import reference as oracle
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
@@ -517,17 +517,16 @@ def test_extract_kernel_equals_plain_on_chain_rows(card_chain_rows,
 
 
 def test_overflow_rerun_at_65536_bucket_memory_is_bounded(dev):
-    """ROADMAP C.1, both terms. The flagship frame with the 10,000-template
-    bank at threshold 60 has more than 16,384 coarse candidates, so
-    ``match`` re-runs at the 65,536 bucket, through the map route over
-    more than 1,024 distinct templates. Its peak device memory above what
-    was allocated before the call stays under the chain's S [K, M1] int32,
-    one slab of level maps [_MAP_SLAB, M0] int32, 64 bytes a candidate
-    slot and 64 MiB for the frame's pyramid, the banks' temporaries and
-    the allocator's rounding: (a) the extraction gathers no [C, M1] score
-    rows (1.07 GB an int32 tensor here) and (b) the map route holds no
-    [K, M0] maps (2.6 GB). The list equals the one at a cap that holds
-    every candidate, with no re-run."""
+    """ROADMAP C.1. The flagship frame with the 10,000-template bank at
+    threshold 60 has more than 16,384 coarse candidates, so ``match``
+    re-runs at the 65,536 bucket, refining through the window
+    (``refine.cu``, one launch a step). Its peak device memory above what
+    was allocated before the call stays under the chain's S [K, M1]
+    int32, 64 bytes a candidate slot and 64 MiB for the frame's pyramid,
+    the banks' temporaries and the allocator's rounding: the extraction
+    gathers no [C, M1] score rows (1.07 GB an int32 tensor here), and the
+    refine holds no level maps. The list equals the one at a cap that
+    holds every candidate, with no re-run."""
     det = Detector(num_features=63, T=(4, 8), device=dev)
     det.class_templates["c"] = synthetic.load_bank_cache(
         synthetic.bank_cache_path(10000, 63))
@@ -541,7 +540,8 @@ def test_overflow_rerun_at_65536_bucket_memory_is_bounded(dev):
     del lms
     want = det.match_batch(scene[None], thr,
                            cand_cap=-(-n_above // 1024) * 1024)[0]
-    kernels = (extract_counted, coarse_maps, map_refine, count_prefix)
+    kernels = (extract_counted, count_prefix, refine_windows, coarse_maps,
+               map_refine)
     before = [k.launches for k in kernels]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -549,14 +549,12 @@ def test_overflow_rerun_at_65536_bucket_memory_is_bounded(dev):
     got = det.match(scene, thr)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    slabs, refines = (k.launches - b for k, b in zip(kernels[1:3],
-                                                     before[1:3]))
-    # step and re-run, each the prefix and the extraction
-    assert extract_counted.launches - before[0] == 2
-    assert count_prefix.launches - before[3] == 2
-    assert slabs >= 2 and refines == slabs
-    K, M1, M0 = 10000, (512 // 8) ** 2, (1024 // 4) ** 2
-    bound = 4 * K * M1 + 4 * _MAP_SLAB * M0 + 64 * 65536 + (64 << 20)
+    # step and re-run: each the prefix, the extraction and one window
+    # refine; no level maps
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        2, 2, 2, 0, 0]
+    K, M1 = 10000, (512 // 8) ** 2
+    bound = 4 * K * M1 + 64 * 65536 + (64 << 20)
     assert peak <= bound, f"peak {peak} bytes over the bound {bound}"
     assert got and [(m.template_id, m.x, m.y, m.similarity) for m in got] \
         == [(m.template_id, m.x, m.y, m.similarity) for m in want]

@@ -6,7 +6,7 @@ template pyramids and frames: match lists compare as (template_id, x, y,
 similarity float32 bits), exactly. The full-size checks hold the port to
 the committed goldens of the flagship configuration (1024x1024 frame,
 1000-template x 63-feature bank), of the dense 10,000-template bank
-(delta-chain coarse scoring, map-route re-run) and of the other input
+(delta-chain coarse scoring, overflow re-run) and of the other input
 modes (mask, 16 orientations, BGR color, wide banks), generated by
 tools/gen_torch_port_golden.py.
 """
@@ -20,8 +20,10 @@ import torch
 
 from shape_based_matching_tpu.utils import synthetic as jsyn
 from shape_based_matching_tpu_torch import Detector
-from shape_based_matching_tpu_torch.models.detector import _batch_pyramid
+from shape_based_matching_tpu_torch.models.detector import (
+    _batch_pyramid, candidate_cap)
 from shape_based_matching_tpu_torch.ops.similarity import coarse_extract
+from shape_based_matching_tpu_torch.utils import profiling
 from shape_based_matching_tpu_torch.utils import synthetic as tsyn
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
@@ -33,9 +35,9 @@ def _keys(matches):
             for m in matches]
 
 
-def _routes(det):
-    """Refine levels run per route, from the detector's counters."""
-    return {r: det.counters[f"refine.{r}"] for r in ("window", "maps")}
+def _steps(det):
+    """(class steps, re-runs among them), from the detector's counters."""
+    return det.counters["steps"], det.counters["reruns"]
 
 
 @pytest.fixture(scope="module")
@@ -123,27 +125,50 @@ def dense():
 @pytest.mark.parametrize("threshold", [80.0, 65.0])
 def test_dense_bank_chain_and_map_route_equal_jax(dense, threshold):
     """The dense bank chains at the coarse level, and this frame has more
-    coarse candidates than the cap of 256 (1486 at 80), so its re-run at
-    a cap of 1024 or more refines through the map route."""
+    coarse candidates than the cap of 256 (1486 at 80), so it re-runs
+    once, at a cap of 1024 or more, where the JAX package refines through
+    its map route and the port through the window."""
     jdet, det, scene = dense
     det.counters.clear()
     got = det.match(scene, threshold)
     assert det._get_chain("bench", (128, 128)) is not None
-    assert _routes(det) == {"window": 1, "maps": 1}
+    assert _steps(det) == (2, 1)
     assert len(got) > 0
     assert _keys(got) == _keys(jdet.match(scene, threshold))
 
 
 def test_forced_overflow_takes_map_route(dense):
-    """cand_cap=4 on two frames: both overflow, each re-runs through the
-    map route, and the lists still equal JAX's."""
+    """cand_cap=4 on two frames: both overflow, each re-runs alone (where
+    the JAX package takes its map route), and the lists still equal
+    JAX's."""
     jdet, det, scene = dense
     frames = np.stack([scene, np.ascontiguousarray(scene[::-1])])
     det.counters.clear()
     got = det.match_batch(frames, 80.0, cand_cap=4)
-    assert _routes(det) == {"window": 1, "maps": 2}
+    assert _steps(det) == (3, 2)
     assert [_keys(g) for g in got] == [_keys(w) for w in
                                        jdet.match_batch(frames, 80.0)]
+
+
+@pytest.mark.parametrize("threshold,bucket", [(85.0, 1024), (80.0, 4096)])
+def test_overflow_reruns_at_its_bucket(dense, threshold, bucket):
+    """A frame that overflows the cap of 256 (590 coarse candidates at 85,
+    1486 at 80) re-runs once, alone, at the bucket ``candidate_cap``
+    picks; its list equals match_batch's at that bucket, which holds
+    every candidate and re-runs nothing, and so does
+    ``match(max_candidates=bucket)``'s, which runs the same loop."""
+    _, det, scene = dense
+    det.counters.clear()
+    with profiling.recording() as rec:
+        got = det.match(scene, threshold)
+    n_above = det.counters["candidates"]
+    assert 256 < n_above <= bucket and candidate_cap(n_above) == bucket
+    assert [x.attrs for x in rec.spans if x.name == "sbm.rerun"] == [
+        {"frame": 0, "n_above": n_above, "cap": bucket}]
+    whole = det.match_batch(scene[None], threshold, cand_cap=bucket)[0]
+    capped = det.match(scene, threshold, max_candidates=bucket)
+    assert _steps(det) == (5, 2)
+    assert got and _keys(got) == _keys(whole) == _keys(capped)
 
 
 def _golden_match(name):
@@ -175,10 +200,10 @@ def test_full_size_mode_matches_committed_golden(name):
 def test_full_size_dense_bank_matches_committed_golden():
     """The 10,000-template bank on the flagship frame: the chain scores
     the coarse level, 3668 coarse candidates overflow the cap of 256, and
-    the re-run at 4096 refines through the map route."""
+    the frame re-runs once, at 4096."""
     det, got, want = _golden_match("e2e10000")
     assert det._get_chain("bench", (512, 512)) is not None
-    assert _routes(det) == {"window": 1, "maps": 1}
+    assert _steps(det) == (2, 1)
     assert [list(k) for k in _keys(got)] == want
     assert len(got) > 0
 

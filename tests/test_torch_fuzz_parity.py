@@ -14,7 +14,7 @@ JAX here without running the JAX package's Detector.
 
 The same scenes at threshold 20 hold many more matches (every list
 non-empty) and send several frames past the candidate cap of 256 into the
-overflow re-run and its map route.
+overflow re-run.
 """
 
 import pytest
@@ -69,7 +69,7 @@ def test_fuzz_match_parity_low_threshold(cases, seed, variant):
     assert got == want, (seed, variant, scene.shape, det.num_features)
     assert got
     if seed in (0, 1, 5, 6):  # these overflow the cap of 256
-        assert det.counters["refine.maps"] == 1
+        assert det.counters["reruns"] == 1
 
 
 def test_fuzz_multi_class_merged_parity():

@@ -181,7 +181,7 @@ def test_adds_drop_cached_groups(setup):
     tid = det.add_template_rotate("narrow", 0, 7.5, (24.0, 24.0))
     assert tid == before
     assert group not in det._merged and group not in det._banks
-    assert "narrow" not in det._banks and "narrow" not in det._max_dims
+    assert "narrow" not in det._banks
     assert not any(k[0] in ("narrow", group) for k in det._chain_plans)
     assert "wide" in det._banks
     got = det.match_batch(frames[:1], THRESHOLD)[0]

@@ -95,7 +95,7 @@ def test_b1_match_span_tree(case):
     step = next(x for x in s if x.name == "sbm.step")
     assert step.attrs == {"cap": 256, "rerun": False}
     refine = next(x for x in s if x.name == "sbm.refine")
-    assert refine.attrs == {"level": 0, "route": "window"}
+    assert refine.attrs == {"level": 0}
     assert s[-1].attrs == {"matches": len(got)} and len(got) > 0
 
 
@@ -128,7 +128,6 @@ def test_batch_rerun_spans_and_counters(case):
     assert c["candidates"] == sum(n_above) + 2 * n_above[1]
     assert c["matches"] == sum(map(len, got)) + 2 * len(one[0])
     assert (c["frames"], c["steps"], c["reruns"]) == (4, 5, 2)
-    assert c["refine.window"] + c["refine.maps"] == 5
     assert c["bank_builds"] == c["chain_plans"] == 0
     det.match_batch(frames, THRESHOLD, as_matches=False)
     # as_matches=False: n_above stays on the card, no candidates counted
