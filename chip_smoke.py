@@ -76,10 +76,14 @@ Phases, each reported on its own line:
    n_instances=4, seed=7)`` at threshold 85, top 32 candidates, 12
    iterations, radius 8, cap 256. The edge field on the card against its
    CPU twin (edge, has, off bitwise) and the octant of every integer
-   gradient against the CPU's; the path's kernels against their twins;
+   gradient against the CPU's; ``csrc/icp_field.cu`` against its plain
+   twin run on the card (all five outputs bit for bit, 1 + 4 launches
+   and no other kernel, the device and queued ms of both); the path's
+   kernels against their twins;
    ``Detector.match_icp`` against ``tests/goldens/
    torch_port_production_icp.json`` (match keys bitwise and in order,
-   poses within JAX's host-vs-packed tolerance) with its launches, and
+   poses within JAX's host-vs-packed tolerance) with its launches (the
+   edge field's 1 + 4 among them), and
    the same call on the CPU against the golden; the
    sync contract (no synchronizing call at a ``match_icp_async``
    dispatch, each of its stages returning while the card still runs a
@@ -1632,29 +1636,104 @@ def _icp_kernel_check(det, frame, thr_f: float, kw: dict,
     return record, rep
 
 
+def _field_kernel_check(src: torch.Tensor, weak: float, radius: int,
+                        card: str) -> tuple[dict, dict]:
+    """icp_field.cu against its plain twin run on the card, on the
+    production frame at the production radius: all five outputs equal bit
+    for bit (float32 bits included), 1 + len(strides) launches a call, all
+    of them field_frontend_kernel / flood_tile_kernel and no torch
+    kernel; the kernel's and the twin's device ms (profiler) and queued
+    ms (CUDA events) a call, and its bound: the frame read once and the
+    26 bytes a pixel of the five outputs written once."""
+    from portbench.metrics.roofline import icp_field_bytes
+    from shape_based_matching_tpu_torch.models.icp import (
+        _strides, edge_nearest_field, edge_nearest_field_plain)
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+
+    def kernel():
+        return edge_nearest_field(src, weak, radius)
+
+    def twin():
+        return edge_nearest_field_plain(src, weak, radius)
+
+    got, want = kernel(), twin()
+    differ = 0
+    for g, w in zip(got, want, strict=True):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"icp_field.cu: {g.dtype} {tuple(g.shape)}"
+                                 f" against the twin's {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        differ += int((g != w).sum())
+    launches = 1 + len(_strides(radius))
+    queued, kern = device_work(kernel)
+    names = {n for n, _ in kern}
+    if (differ or queued != launches * CALLS or not names
+            or any("field_frontend_kernel" not in n
+                   and "flood_tile_kernel" not in n for n in names)
+            or any("at::native" in n for n in names)):
+        raise AssertionError(f"icp_field.cu: {differ} elements differ from "
+                             f"the twin, {queued / CALLS} launches a call "
+                             f"(want {launches}), kernels {names}")
+    twin_queued, twin_kern = device_work(twin)
+    H, W = src.shape
+    n_bytes = icp_field_bytes((H, W)) + 26 * H * W
+    ms, plain_ms = _time_ms(kernel, 50), _time_ms(twin, 10)
+    dev_ms = sum(t for _, t in kern) / CALLS
+    twin_dev_ms = sum(t for _, t in twin_kern) / CALLS
+    bound_ms, bound_by = _bound(n_bytes, 0)
+    rep = {"H": H, "W": W, "radius": radius, "launches": launches,
+           "edge_pixels": int(got[2].sum()), "has_pixels": int(got[3].sum()),
+           "kernel_device_ms": dev_ms, "kernel_queued_ms": ms,
+           "twin_device_ms": twin_dev_ms, "twin_queued_ms": plain_ms,
+           "twin_launches": twin_queued / CALLS, "bound_ms": bound_ms,
+           "share_of_bound": bound_ms / dev_ms if dev_ms else None}
+    print(f"production: icp_field.cu equals its twin on the card bit for "
+          f"bit ({W}x{H}, radius {radius}; off, normal, edge, has, subpix; "
+          f"{rep['edge_pixels']} edge pixels), {launches} launches a call; "
+          f"device ms a call kernel {dev_ms:.5f} / twin {twin_dev_ms:.5f} "
+          f"({rep['twin_launches']:.0f} launches); queued ms {ms:.4f} / "
+          f"{plain_ms:.4f}; bound {bound_ms:.6f} ms on {card}")
+    record = {"name": "edge_field", "route": "cuda",
+              "source": "shape_based_matching_tpu_torch/csrc/icp_field.cu",
+              "replaces": "shape_based_matching_tpu/models/icp.py "
+                          "_edge_frontend_impl, _jump_flood_impl (XLA)",
+              "path": "production", "shape": f"{W}x{H} radius={radius}",
+              "launches": launches, "max_abs_err": differ, "ms": ms,
+              "plain_ms": plain_ms, "device_ms": dev_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": None}
+    return record, rep
+
+
 def production_phase(card: str) -> tuple[list, dict]:
     """Phase 12: the production path at full width (bench.py's production
     cells): the committed 1000 x 128 bank, synthetic_scene(1024, 1024,
     ..., n_instances=4, seed=7), threshold 85, top_c 32, 12 iterations,
     radius 8, cand_cap 256. The edge field on the card against its CPU
     twin (edge, has, off bitwise), the octant on every integer gradient
-    against the CPU's; match_icp against the production_icp golden (keys
-    bitwise and in order, poses within POSE_TOL) through the path's
-    kernels, each held against its twin; the sync contract;
+    against the CPU's; icp_field.cu against its twin on the card (all
+    five outputs bitwise, its launches); match_icp against the
+    production_icp golden (keys bitwise and in order, poses within
+    POSE_TOL) through the path's kernels, each held against its twin;
+    the sync contract;
     match_refine_batch against refine_matches_icp; timings and the device
     kernels a call."""
     from shape_based_matching_tpu_torch import Detector
     from shape_based_matching_tpu_torch.models.detector import (
         Match, _batch_pyramid)
     from shape_based_matching_tpu_torch.models.icp import (
-        edge_nearest_field, icp_refine_points, match_refine_batch, octant,
-        refine_matches_icp)
+        _strides, edge_nearest_field, icp_refine_points, match_refine_batch,
+        octant, refine_matches_icp)
     from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
     from shape_based_matching_tpu_torch.ops.cuda.coarse import (
         coarse_maps, coarse_scores, coarse_scores_plain)
     from shape_based_matching_tpu_torch.ops.cuda.frontend import (
         quant_spread, quant_spread_plain)
     from shape_based_matching_tpu_torch.ops.cuda.icp import icp_steps
+    from shape_based_matching_tpu_torch.ops.cuda.icp_field import edge_field
     from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
         map_refine)
     from shape_based_matching_tpu_torch.ops.cuda.refine import (
@@ -1737,24 +1816,28 @@ def production_phase(card: str) -> tuple[list, dict]:
 
     # the path through the kernels: match_icp against the golden
     kernels = (quant_spread, coarse_scores, refine_windows, coarse_maps,
-               map_refine, chain_scores, icp_steps)
+               map_refine, chain_scores, icp_steps, edge_field)
     det.match_icp(frame, thr_f, **kw)  # warm
     got, launches = _counted(kernels,
                              lambda: det.match_icp(frame, thr_f, **kw))
     need = ["quant_spread", "coarse_scores", "refine_windows", "icp_steps"]
+    field_launches = 1 + len(_strides(radius))
     if (not all(launches[n] for n in need)
             or any(launches[n] for n in ("chain_scores", "coarse_maps",
                                          "map_refine"))
-            or launches["icp_steps"] != 1):
+            or launches["icp_steps"] != 1
+            or launches["edge_field"] != field_launches):
         raise AssertionError(f"production: a kernel of the path was not "
                              f"launched, or the chain or the map route "
-                             f"was, or icp.cu not once: {launches}")
+                             f"was, or icp.cu not once, or icp_field.cu not "
+                             f"{field_launches} times: {launches}")
     pose_dev = _pose_check(got, golden["entries"], "match_icp")
     print(f"production: match_icp equals the production_icp golden "
           f"({len(got)} entries, {golden['path']} path: cap "
           f"{cfg['cand_cap']} overflow {golden['overflow']}); largest pose "
           f"deviation {pose_dev}; launches {launches}")
     icp_record, icp_report = _icp_kernel_check(det, frame, thr_f, kw, card)
+    field_record, field_report = _field_kernel_check(src, weak, radius, card)
     cpu = Detector(num_features=cfg["num_features"], T=tuple(cfg["T"]),
                    device="cpu")
     cpu.class_templates[cid] = pyramids
@@ -1870,9 +1953,9 @@ def production_phase(card: str) -> tuple[list, dict]:
         plain_ms = _time_ms(plain, 3)
         records.append(_record(fn, srcf, replaces, err, launches,
                                "production", ms, plain_ms, work, shape))
-    records.append(icp_record)
+    records.extend((icp_record, field_record))
     return records, {
-        "icp_steps": icp_report,
+        "icp_steps": icp_report, "edge_field": field_report,
         "field_exact": field_exact, "field_dev": field_dev,
         "octant_exact": oct_exact, "pose_dev": pose_dev,
         "cpu_pose_dev": cpu_dev,

@@ -8,7 +8,10 @@ The JAX package's ``models/icp.py``, op for op:
   quantized direction (edges: local maxima along it, above the weak
   threshold), unit normals, and a parabola subpixel offset along that
   direction. A jump flood then gives every pixel the offset to its
-  nearest edge pixel within `radius`.
+  nearest edge pixel within `radius`. On the card the frontend is one
+  launch and the flood one launch a stride (``ops/cuda/icp_field``,
+  ``csrc/icp_field.cu``), bit for bit the plain twin
+  ``edge_nearest_field_plain``, which the CPU runs.
 * **ICP** (``icp_refine_points``): per candidate, 12 steps of a
   point-to-plane least squares that is linear in the sim2 parameters
   (a, b, tx, ty) = (s cos, s sin, t): one 4x4 solve per candidate and
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda.icp import icp_steps
+from ..ops.cuda.icp_field import edge_field
 from ..ops.filters import gaussian_blur7_u8, sobel3_i32
 from ..ops.gradients import weak_threshold_sq
 from ..utils.profiling import span
@@ -93,7 +97,9 @@ def octant(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 def _edge_frontend(src: torch.Tensor, weak_threshold: float):
     """uint8 [H, W] -> (edge [H, W] bool, normal [H, W, 2], subpix
-    [H, W, 2] float32): JAX's ``_edge_frontend_impl``."""
+    [H, W, 2] float32): JAX's ``_edge_frontend_impl``. The CPU route and
+    the reference of ``csrc/icp_field.cu``'s frontend, which keeps this
+    order of operations and these float32 constants."""
     smoothed = gaussian_blur7_u8(src)
     dx = sobel3_i32(smoothed, dx=True).to(torch.float32)
     dy = sobel3_i32(smoothed, dx=False).to(torch.float32)
@@ -136,9 +142,17 @@ def _jump_flood(edge: torch.Tensor, radius: int) -> torch.Tensor:
     where none) by JAX's jump flood (``_jump_flood_impl``), in its order:
     per stride the current distances once, then the 8 neighbours at
     (dr, dc) in {-s, 0, s}^2, dr outer, each read from the seeds as the
-    neighbours before it left them (a Gauss-Seidel sweep), taken where
-    strictly nearer. The seeds live inside one buffer padded with BIG by
-    the largest stride, so a neighbour is a view of it."""
+    neighbours before it left them (Gauss-Seidel across neighbours,
+    Jacobi within one), taken where strictly nearer (float32 distances).
+    The seeds live inside one buffer padded with BIG by the largest
+    stride, so a neighbour is a view of it.
+
+    The CPU route and the reference of ``csrc/icp_field.cu``'s flood. The
+    neighbours' row offsets are three -s, two 0 and three +s, and likewise
+    the columns', so a pixel's seed after a stride depends only on the
+    stride's input within +-3s on each axis: the kernel runs a stride as
+    tiles that each stage a 3s halo (BIG outside the frame) and write to
+    another buffer, which gives these seeds bit for bit."""
     h, w = edge.shape
     dev = edge.device
     strides = _strides(radius)
@@ -192,10 +206,32 @@ def edge_nearest_field(src: torch.Tensor, weak_threshold: float,
     int32 offset (dx, dy) to the nearest edge pixel, normal [H, W, 2]
     float32 unit gradient, edge [H, W] bool, has [H, W] bool (an edge
     within `radius` on both axes), subpix [H, W, 2] float32 subpixel
-    shift of each edge pixel along its quantized direction)."""
+    shift of each edge pixel along its quantized direction).
+
+    On the card ``csrc/icp_field.cu`` (``ops/cuda/icp_field.edge_field``:
+    1 + len(strides) launches up to radius 8); on the CPU the plain twin
+    ``edge_nearest_field_plain``. The span's ``route`` says which
+    ("kernel" / "plain"). Raises ValueError, on either route, for a frame
+    that is not uint8 [H, W] or whose seed coordinates or radius reach
+    BIG."""
     if src.dtype != torch.uint8 or src.dim() != 2:
         raise ValueError(f"expected a uint8 [H, W] frame, got {src.dtype} "
                          f"{tuple(src.shape)}")
+    H, W = src.shape
+    if not (0 < H < BIG and 0 < W < BIG) or radius > BIG:
+        raise ValueError(f"a {W}x{H} frame at radius {radius} is outside "
+                         f"the field's seed coordinates (below {BIG})")
+    route = "kernel" if src.device.type == "cuda" else "plain"
+    # strides: len(_strides(radius)), without building the list
+    with span("sbm.icp.field", route=route, H=H, W=W,
+              strides=max(radius - 1, 0).bit_length() + 1):
+        return edge_field(src, weak_threshold, radius)
+
+
+def edge_nearest_field_plain(src: torch.Tensor, weak_threshold: float,
+                             radius: int = 8):
+    """Plain twin of ``edge_nearest_field`` in torch ops: ``_edge_frontend``,
+    ``_jump_flood``, ``_flood_epilogue``."""
     edge, normal, subpix = _edge_frontend(src, weak_threshold)
     off, has = _flood_epilogue(_jump_flood(edge, radius), radius)
     return off, normal, edge, has, subpix

@@ -87,6 +87,10 @@ SIGNATURES = {
     # valid, C, N, H, W, iters, r2, min_inliers, stream
     "sbm_icp_steps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _F, _I, _P),
+    # src, edge, normal, subpix, off, has, seed_a, seed_b, H, W, thr_sq,
+    # radius, stream, launches (int out)
+    "sbm_icp_field": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P,
+                      _P),
 }
 
 

@@ -45,6 +45,7 @@ from shape_based_matching_tpu_torch.utils import synthetic
 from shape_based_matching_tpu_torch.oracle import reference as oracle
 from shape_based_matching_tpu_torch.utils.convert import pyramids_to_banks
 
+from .torch_csrc import constants
 from .torch_icp_replay import replay_torch, scene_case
 from .torch_extract_cases import (CHAIN_CASES, EXTRACT_CASES,
                                   STRADDLE_CASES, chain_case, chain_rows,
@@ -1046,6 +1047,78 @@ def test_edge_field_on_card_equals_cpu(dev):
         assert torch.equal(got[i].cpu(), want[i])
     for i in (1, 4):
         assert (got[i].cpu() - want[i]).abs().max() <= 2.0 ** -21
+
+
+# icp_field.cu against the twin on the card: (H, W, radius, frame) -- the
+# benchmark's 1024^2 scene, sizes off the 32 x 32 tiles, a frame narrower
+# than radius 8's largest halo (24), one with no edge, and the radius
+# whose strides all take one launch (1) or some of them eight (64)
+FIELD_CASES = [(1024, 1024, 8, "scene"), (37, 53, 8, "scene"),
+               (240, 320, 8, "scene"), (1023, 1025, 8, "scene"),
+               (5, 300, 8, "scene"), (64, 96, 8, "flat"),
+               (240, 320, 1, "scene"), (240, 320, 64, "scene"),
+               (1023, 1025, 64, "scene")]
+
+
+def _field_frame(H, W, kind, dev):
+    """A gray frame: the scene's noise (amplitude 25) with 4 stars where
+    they fit, else with two bright bands; "flat": one grey level."""
+    if kind == "flat":
+        return torch.full((H, W), 90, dtype=torch.uint8, device=dev)
+    if min(H, W) > 96:
+        img = synthetic.synthetic_scene(
+            H, W, synthetic.synthetic_shape_image(96, 1), n_instances=4,
+            seed=H + W)
+    else:
+        img = (np.random.RandomState(H * W).rand(H, W) * 25).astype(np.uint8)
+        img[:, W // 3:W // 3 + 16] = 200
+        img[H // 2:, 2 * W // 3:] = 120
+    return torch.from_numpy(img).to(dev)
+
+
+@pytest.mark.parametrize("H,W,radius,kind", FIELD_CASES)
+def test_edge_field_kernel_equals_twin_on_card(dev, H, W, radius, kind):
+    """edge_nearest_field on the card (icp_field.cu) equals its plain twin
+    run on the card bit for bit, all five outputs, float bits included;
+    1 + len(strides) launches, 8 a stride above HALO_STRIDE_MAX."""
+    from shape_based_matching_tpu_torch.models.icp import (
+        _strides, edge_nearest_field, edge_nearest_field_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.icp_field import edge_field
+
+    halo_max = constants("icp_field.cu")["HALO_STRIDE_MAX"]
+    src = _field_frame(H, W, kind, dev)
+    before = edge_field.launches
+    got = edge_nearest_field(src, 30.0, radius)
+    assert edge_field.launches == before + 1 + sum(
+        1 if s <= halo_max else 8 for s in _strides(radius))
+    want = edge_nearest_field_plain(src, 30.0, radius)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    edge, has, off = got[2], got[3], got[0]
+    if kind == "flat":
+        assert not edge.any() and not has.any() and not off.any()
+    else:
+        assert edge.sum() > 20 and has.any()
+
+
+def test_edge_field_is_five_launches_and_no_other_kernel(dev):
+    """edge_nearest_field at radius 8 on the card queues 1 + 4 device
+    kernels a call, all icp_field.cu's: no torch op."""
+    from shape_based_matching_tpu_torch.models.icp import edge_nearest_field
+    from shape_based_matching_tpu_torch.utils.profiling import (
+        CALLS, device_work)
+
+    src = _field_frame(1024, 1024, "scene", dev)
+    queued, kern = device_work(lambda: edge_nearest_field(src, 30.0, 8))
+    assert queued == 5 * CALLS
+    names = [n for n, _ in kern]
+    assert names and all("field_frontend_kernel" in n
+                         or "flood_tile_kernel" in n for n in names), names
+    assert not any("at::native" in n for n in names)
 
 
 def test_match_icp_on_card_equals_cpu(dev):

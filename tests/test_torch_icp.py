@@ -28,10 +28,13 @@ from shape_based_matching_tpu.utils.synthetic import (
     synthetic_scene as jscene)
 from shape_based_matching_tpu_torch import Detector, Match
 from shape_based_matching_tpu_torch.models import icp
+from shape_based_matching_tpu_torch.ops.cuda import icp_field
+from shape_based_matching_tpu_torch.utils import profiling
 from shape_based_matching_tpu_torch.utils import synthetic as tsyn
 from shape_based_matching_tpu_torch.utils.verify import bgr2gray_u8
 
 from .test_icp import _forward, _warp_into
+from .torch_csrc import constants
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "torch_port_production_icp.json")
@@ -152,6 +155,150 @@ def test_jump_flood_is_jax_gauss_seidel():
     np.testing.assert_array_equal(got, np.stack([np.asarray(w)
                                                  for w in want]))
     assert (_jacobi_flood(edge, 8) != got).any(axis=0).sum() > 0
+
+
+FIELD_K = constants("icp_field.cu")
+
+
+def _sub_sweeps(seed, y, x, h, w, s):
+    """The 8 neighbours of stride s, in order, over a region of the seed
+    planes [2, R, C] whose frame coordinates are y [R, 1], x [1, C]: each
+    neighbour read as the ones before it left the region (Jacobi within
+    one); cells outside the frame hold BIG and stay, and a neighbour
+    outside the region is BIG (never taken: the kernel keeps the seed)."""
+    big = icp.BIG
+    R, C = seed.shape[1:]
+    frame = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+
+    def dist2(sd):
+        dr = (sd[0] - y).astype(np.float32)
+        dc = (sd[1] - x).astype(np.float32)
+        return np.where(sd[0] >= big, np.float32(1e18), dr * dr + dc * dc)
+
+    for dr in (-s, 0, s):
+        for dc in (-s, 0, s):
+            if dr == 0 and dc == 0:
+                continue
+            pad = np.pad(seed, ((0, 0), (s, s), (s, s)), constant_values=big)
+            cand = pad[:, s + dr:s + dr + R, s + dc:s + dc + C]
+            take = frame & (dist2(cand) < dist2(seed))
+            seed = np.where(take, cand, seed)
+    return seed
+
+
+def _tiled_flood(edge: np.ndarray, radius: int, th: int, tw: int,
+                 halo_max: int) -> np.ndarray:
+    """icp_field.cu's flood replayed in NumPy: a stride s <= halo_max as
+    th x tw tiles that each stage their seeds and a 3s halo (BIG outside
+    the frame), run the 8 neighbours on that region and write their tile
+    to another buffer; a larger stride as 8 frame-wide ping-pong sweeps."""
+    h, w = edge.shape
+    big = icp.BIG
+    rows, cols = np.mgrid[0:h, 0:w]
+    seed = np.stack([np.where(edge, rows, big),
+                     np.where(edge, cols, big)]).astype(np.int32)
+    for s in icp._strides(radius):
+        if s > halo_max:
+            seed = _sub_sweeps(seed, rows[:, :1], cols[:1], h, w, s)
+            continue
+        g = 3 * s
+        pad = np.pad(seed, ((0, 0), (g, g + th), (g, g + tw)),
+                     constant_values=big)
+        out = np.empty_like(seed)
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                y = np.arange(ty - g, ty + th + g)[:, None]
+                x = np.arange(tx - g, tx + tw + g)[None, :]
+                reg = _sub_sweeps(pad[:, ty:ty + th + 2 * g,
+                                      tx:tx + tw + 2 * g], y, x, h, w, s)
+                oh, ow = min(th, h - ty), min(tw, w - tx)
+                out[:, ty:ty + oh, tx:tx + ow] = reg[:, g:g + oh, g:g + ow]
+        seed = out
+    return seed
+
+
+def _flood_edges(kind: str) -> np.ndarray:
+    if kind == "star":  # a real edge map: many ties along the contours
+        img = _warped_star()[16:112, 16:144]
+        return icp._edge_frontend(torch.from_numpy(
+            np.ascontiguousarray(img)), 30.0)[0].numpy()
+    h, w, density = {"sparse": (64, 64, 0.01), "strip": (40, 90, 0.03),
+                     "none": (33, 47, 0.0)}[kind]
+    return np.random.RandomState(h + w).rand(h, w) < density
+
+
+@pytest.mark.parametrize("kind,radius,tile", [
+    ("sparse", 8, "kernel"), ("star", 8, "kernel"), ("strip", 8, (7, 9)),
+    ("sparse", 4, (16, 32)), ("star", 16, (13, 20)), ("strip", 1, (5, 64)),
+    ("none", 8, "kernel")])
+def test_tiled_flood_replay_equals_jump_flood(kind, radius, tile):
+    """The flood kernel's decomposition (per stride, tiles with a 3s halo
+    and ping-pong buffers; above HALO_STRIDE_MAX, one launch a neighbour)
+    gives ``_jump_flood``'s seed planes bit for bit: at the kernel's tile
+    and at tiles that the frame's edges cut anywhere."""
+    th, tw = ((FIELD_K["FLOOD_TH"], FIELD_K["FLOOD_TW"]) if tile == "kernel"
+              else tile)
+    edge = _flood_edges(kind)
+    want = icp._jump_flood(torch.from_numpy(edge), radius).numpy()
+    got = _tiled_flood(edge, radius, th, tw, FIELD_K["HALO_STRIDE_MAX"])
+    np.testing.assert_array_equal(got, want)
+    assert (want[0] < icp.BIG).sum() > edge.sum() or not edge.any()
+
+
+def test_field_constants_and_span_strides():
+    """The source's BIG is the twin's, and the span's stride count is
+    len(_strides(radius)) at every radius."""
+    assert FIELD_K["BIG"] == icp.BIG
+    for radius in (-1, 0, 1, 2, 3, 4, 5, 8, 9, 63, 64, 65):
+        with profiling.recording() as rec:
+            icp.edge_nearest_field(torch.zeros((1, 1), dtype=torch.uint8),
+                                   30.0, radius)
+        (sp,) = rec.spans
+        assert sp.attrs["strides"] == len(icp._strides(radius)), radius
+
+
+def _octant4(dx: np.ndarray, dy: np.ndarray) -> np.ndarray:
+    """icp_field.cu's octant4 in int32 NumPy: 0 where (|dx| + |dy|)^2 <=
+    2 dx^2, 2 where it is < 2 dy^2, else 1 for dx, dy of one sign and 3
+    for opposite signs."""
+    ax, ay = np.abs(dx), np.abs(dy)
+    s = (ax + ay) * (ax + ay)
+    return np.where(s <= 2 * ax * ax, 0, np.where(
+        s < 2 * ay * ay, 2, np.where((dx > 0) == (dy > 0), 1, 3))).astype(
+            np.int32)
+
+
+def test_octant4_equals_twin_octant_every_integer_gradient():
+    """The frontend kernel's exact integer octant test, replayed, gives
+    the twin's atan2 octant for every integer (dx, dy) in [-1020, 1020]^2
+    (the Sobel range of uint8 frames)."""
+    g = np.arange(-1020, 1021, dtype=np.int32)
+    dx, dy = (a.reshape(-1) for a in np.meshgrid(g, g, indexing="ij"))
+    want = icp.octant(torch.from_numpy(dx.astype(np.float32)),
+                      torch.from_numpy(dy.astype(np.float32))).numpy()
+    np.testing.assert_array_equal(_octant4(dx, dy), want)
+    assert set(np.unique(want)) == {0, 1, 2, 3}
+
+
+def test_field_cpu_route_is_the_twin_and_its_span():
+    img = torch.from_numpy(_warped_star())
+    before = icp_field.edge_field.launches
+    with profiling.recording() as rec:
+        got = icp.edge_nearest_field(img, 30.0, 8)
+    want = icp.edge_nearest_field_plain(img, 30.0, 8)
+    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+    assert icp_field.edge_field.launches == before
+    assert [s.attrs for s in rec.spans if s.name == "sbm.icp.field"] == [
+        {"route": "plain", "H": 128, "W": 160, "strides": 4}]
+
+
+@pytest.mark.parametrize("shape,dtype,radius", [
+    ((0, 5), torch.uint8, 8), ((5, 0), torch.uint8, 8),
+    ((4, 4), torch.uint8, icp.BIG + 1), ((4, 4), torch.int16, 8),
+    ((2, 4, 4), torch.uint8, 8)])
+def test_field_rejects_what_the_kernel_does_not_take(shape, dtype, radius):
+    with pytest.raises(ValueError):
+        icp.edge_nearest_field(torch.zeros(shape, dtype=dtype), 30.0, radius)
 
 
 def _icp_both(img, pts, origins, pv, **kw):

@@ -189,7 +189,8 @@ def test_library_name_follows_sources():
     assert path == build.library_path()
     assert sorted(os.path.basename(s) for s in build._sources()) == [
         "argmax.cuh", "chain.cu", "coarse.cu", "extract.cu", "frontend.cu",
-        "icp.cu", "lmword.cuh", "map_refine.cu", "pyramid.cu", "refine.cu"]
+        "icp.cu", "icp_field.cu", "lmword.cuh", "map_refine.cu", "pyramid.cu",
+        "refine.cu"]
 
 
 def test_host_helper_build_failure_raises(monkeypatch, tmp_path):
