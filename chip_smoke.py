@@ -157,7 +157,18 @@ Phases, each reported on its own line:
    (4)`` over the visible card(s); ``python -m
    shape_based_matching_tpu_torch.bench --metric NAME`` for e2e1000,
    fps_b8, e2e10000 and production_device, each its own process, exit 0
-   and a finite positive value.
+   and a finite positive value;
+19. ddcr's fiducial inspection (``inspect_phase``), the path of the
+   benchmark cell ``jabil_fiducials.b1``, through the cell's deployment
+   module: its 12-template bank trained on the card and a 2448x2048 BGR
+   frame of its generator (8 fiducials, 3 inverted copies). The colour
+   frontend at both levels, pyrDown, the linear memories, coarse.cu's
+   wide route, extract.cu and the window refine against their twins
+   bitwise at those shapes; ``Detector.inspect`` with its launches
+   counted (each kernel's count, no chain or map route) and the
+   ``inspect.*`` counters against its rows; the gate on the card against
+   ``verify_match_fiducial`` on the host, float32 bits and decisions;
+   timings.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it does over 67e12 per second
@@ -3708,6 +3719,256 @@ def entry_phase(card: str) -> dict:
     return out
 
 
+# phase 19: ddcr's fiducial inspection at the jabil_fiducials.b1 cell's
+# shapes: one frame of the cell's generator with the mix's most
+# fiducials (8) and contrast-inverted copies (3), from a seed past 2^31
+INSPECT_SEED = 2 ** 31 + 11
+
+
+def inspect_phase(card: str) -> tuple[list, dict]:
+    """Phase 19: ``Detector.inspect`` (match, NMS, the CCORR gate), the
+    path of the benchmark cell ``jabil_fiducials.b1``, through the cell's
+    own deployment module (``portbench/deployments/jabil_fiducials.py``):
+    its 12-template fiducial bank trained on the card by ``train`` and a
+    2448x2048 BGR frame of ``frame_pool``.
+
+    1. Each kernel against its twin, bitwise, at the path's shapes: the
+       colour frontend at 2448x2048 (T=4) and 1224x1024 (T=8), pyrDown
+       of the BGR frame, both levels' linear memories, coarse.cu's
+       ``wide`` route (64 slots or more), extract.cu's prefix and
+       extraction (every output of every slot) and the window refine.
+    2. ``det.inspect`` through the kernels, the launch counters set to 0
+       just before it: per level the frontend and the linear memories,
+       one pyrDown, per step (``steps``) one coarse, prefix, extraction
+       and window refine; no chain, level maps or map refine. The
+       ``inspect.*`` counters agree with the rows.
+    3. The gate (``ccorr_batch`` on the card) against
+       ``verify_match_fiducial`` on the host a kept match: the float32
+       CCORR bits and the decisions; the 8 fiducials pass, the inverted
+       copies fail.
+    4. Timings: each kernel against its twin (its record in the
+       ``kernels`` line), the gate batched and plain, the call end to
+       end.
+    Returns the kernels' records and the phase's report."""
+    from portbench import harness
+    from shape_based_matching_tpu_torch.models import inspect
+    from shape_based_matching_tpu_torch.ops.cuda.chain import chain_scores
+    from shape_based_matching_tpu_torch.ops.cuda.coarse import (
+        coarse_maps, coarse_scores, coarse_scores_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.extract import (
+        count_prefix, count_prefix_plain, extract_counted,
+        extract_counted_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.frontend import (
+        quant_spread, quant_spread_plain)
+    from shape_based_matching_tpu_torch.ops.cuda.map_refine import (
+        map_refine)
+    from shape_based_matching_tpu_torch.ops.cuda.pyramid import (
+        linear_memories, linear_memories_plain, pyr_down)
+    from shape_based_matching_tpu_torch.ops.cuda.refine import (
+        refine_windows, refine_windows_plain)
+    from shape_based_matching_tpu_torch.ops.filters import pyr_down_u8_plain
+    from shape_based_matching_tpu_torch.ops.similarity import (
+        _flat_offsets, _positions, _rmin_for_threshold, coarse_route)
+    from shape_based_matching_tpu_torch.ops.window import window_origin
+    from shape_based_matching_tpu_torch.utils.verify import (
+        bgr2gray_u8, verify_match_fiducial)
+
+    t_phase = time.perf_counter()
+    dep = harness.load_deployment({"module": "jabil_fiducials"})
+    config = dep._config()
+    traffic = {"api": "inspect", "batch": 1, "pool": 1, "instances": [8],
+               "distractors": [3], "check_frames": 1}
+    pool, _ = dep.frame_pool(config, traffic, INSPECT_SEED)
+    frame = pool[0]
+    det = dep.train(config, INSPECT_SEED, DEVICE)
+    cid = dep.CLASS_ID
+    threshold, nms, ccorr = (float(config[k]) for k in
+                             ("match_threshold", "nms", "ccorr"))
+    dev = torch.device(DEVICE)
+    banks = det._get_banks(cid)
+    weak, T, n_ori = det.weak_threshold, det.T_at_level, det.num_orientations
+    sizes = det._level_sizes(frame.shape[:2])
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    frames, _ = _upload(frame, None, dev)
+    route = coarse_route(banks[1], T[1], sizes[1], n_ori,
+                         det._get_chain(cid, sizes[-1]) is not None)
+    if route != "wide":
+        raise AssertionError(f"inspect: the jabil bank's coarse route is "
+                             f"{route}, not wide")
+
+    # 1. kernels against their twins at the path's shapes
+    half = pyr_down(frames)
+    pd_err = _max_abs_err([(half, pyr_down_u8_plain(frames))])
+    spreads = [(quant_spread(f, weak, t, n_ori),
+                quant_spread_plain(f, weak, t, n_ori), t)
+               for f, t in ((frames, T[0]), (half, T[1]))]
+    k1_err = _max_abs_err([(a, b) for a, b, _ in spreads])
+    lm_err = _max_abs_err([(linear_memories(a, t), linear_memories_plain(a, t))
+                           for a, _, t in spreads])
+    lms = [linear_memories(a, t) for a, _, t in spreads]
+    T1, (w1, h1) = T[1], sizes[1]
+    W1, H1 = w1 // T1, h1 // T1
+    M1 = W1 * H1
+    off = _flat_offsets(banks[1], T1, W1, M1, sizes[1], n_ori)
+    pos = _positions(banks[1], T1, W1, H1)
+    rmin, t4n = _rmin_for_threshold(banks[1].nfeat, thr)
+    k2_args = (lms[1], off, pos, rmin, M1)
+    S, cnt = coarse_scores(*k2_args)
+    k2_err = _max_abs_err(zip((S, cnt), coarse_scores_plain(*k2_args)))
+    ex_args = (S, cnt, pos, rmin, t4n, T1, W1, 256)
+    ex = extract_counted(*ex_args)
+    ex_err = _extract_err(ex, extract_counted_plain(*ex_args))
+    pre = (cnt, pos, rmin, t4n, M1, 256)
+    got_pre, plain_pre = count_prefix(*pre), count_prefix_plain(*pre)
+    pre_err = max(_max_abs_err([(got_pre[0], plain_pre[0]),
+                                (got_pre[2], plain_pre[2])]),
+                  max(_max_abs_err([(got_pre[1][b, :n], plain_pre[1][b, :n])])
+                      for b, n in enumerate(plain_pre[2][:, 0].tolist())))
+    k, x, y, _, valid, n_above = ex
+    wx, wy = window_origin(banks[0].width, banks[0].height, T[0], sizes[0],
+                           k, x, y)
+    k3_args = (lms[0], banks[0], T[0], sizes[0], k, wx, wy, valid, n_ori)
+    k3_err = _max_abs_err(zip(refine_windows(*k3_args),
+                              refine_windows_plain(*k3_args[:-1])))
+    K, N = off.shape
+    N0 = banks[0].fx.shape[1]
+    print(f"inspect: colour frontend vs plain max_abs_err {k1_err} at "
+          f"{frame.shape[1]}x{frame.shape[0]} T={T[0]} and its half "
+          f"T={T[1]}; pyrDown (BGR) {pd_err}; linear memories {lm_err}; "
+          f"coarse ({route}) K={K} N={N} M={M1} {k2_err} "
+          f"({int(cnt.sum())} above threshold, n_above "
+          f"{int(n_above[0])}); prefix {pre_err}, extraction {ex_err} at "
+          f"C=256; window refine N={N0} {k3_err} ({int(valid.sum())} live)")
+    if k1_err or pd_err or lm_err or k2_err or pre_err or ex_err or k3_err:
+        raise AssertionError("inspect: a kernel disagrees with its twin")
+
+    # 2. the call through the kernels
+    kernels = (quant_spread, pyr_down, linear_memories, coarse_scores,
+               count_prefix, extract_counted, refine_windows, chain_scores,
+               coarse_maps, map_refine)
+    det.counters.clear()
+    got, launches = _counted(kernels, lambda: det.inspect(
+        frame, threshold, nms=nms, ccorr=ccorr))
+    steps = det.counters["steps"]
+    want = {"quant_spread": 2, "pyr_down": 1, "linear_memories": 2,
+            **dict.fromkeys(("coarse_scores", "count_prefix",
+                             "extract_counted", "refine_windows"), steps),
+            **dict.fromkeys(("chain_scores", "coarse_maps", "map_refine"),
+                            0)}
+    print(f"inspect: launches {launches}; {_steps(det)}; {len(got)} kept "
+          f"matches, {sum(r.passed for r in got)} passed")
+    if steps < 1 or launches != want:
+        raise AssertionError(f"inspect: launches {launches}, expected "
+                             f"{want}")
+    counted = {c: det.counters[c] for c in
+               ("inspect.frames", "inspect.gated", "inspect.rejected")}
+    if counted != {"inspect.frames": 1, "inspect.gated": len(got),
+                   "inspect.rejected": sum(not r.passed for r in got)}:
+        raise AssertionError(f"inspect: counters {counted} against "
+                             f"{len(got)} rows")
+
+    # 3. the gate on the card against verify_match_fiducial on the host
+    gray = bgr2gray_u8(frame)
+    fid = dep.fiducial(config)
+    bad = []
+    for r in got:
+        m = r.match
+        ok, score = verify_match_fiducial(
+            gray, (m.x, m.y), det.class_templates[cid][m.template_id][0],
+            fid, ccorr, device="cpu")
+        if (np.float32(score).view(np.int32) != np.float32(
+                r.ccorr).view(np.int32) or ok != r.passed):
+            bad.append((m.template_id, m.x, m.y, r.ccorr, score))
+    n_passed = sum(r.passed for r in got)
+    print(f"inspect: ccorr_batch on the card equals verify_match_fiducial "
+          f"on {len(got) - len(bad)} of {len(got)} kept matches (float32 "
+          f"bits and decisions); {n_passed} passed")
+    if bad or n_passed != 8 or len(got) < 11:
+        raise AssertionError(f"inspect: the gate differs from its twin at "
+                             f"{bad[:5]}, or {n_passed} of {len(got)} "
+                             f"passed (8 fiducials, 3 inverted copies)")
+
+    # 4. timings
+    todo = [(0, r.match) for r in got]
+    scene = torch.from_numpy(frame[None]).to(dev)
+    gate_ms = _time_ms(lambda: inspect._gate_batched(det, scene, todo,
+                                                     ccorr), 10)
+    plain_gate_ms = _time_ms(lambda: inspect._gate_plain(det, scene, todo,
+                                                         ccorr), 3)
+    e2e_ms = _time_ms(lambda: det.inspect(frame, threshold, nms=nms,
+                                          ccorr=ccorr), 10)
+    H, W = frame.shape[:2]
+    pre_work = (cnt, pos, rmin, t4n, M1, 256)
+    table = (
+        (quant_spread, "frontend.cu", "frontend_pallas.py:108", k1_err,
+         lambda: quant_spread(frames, weak, T[0], n_ori),
+         lambda: quant_spread_plain(frames, weak, T[0], n_ori),
+         f"color 8-ori {W}x{H} T={T[0]}",
+         _frontend_work(1, H, W, 3, n_ori, T[0], False, False)),
+        (quant_spread, "frontend.cu", "frontend_pallas.py:108", k1_err,
+         lambda: quant_spread(half, weak, T[1], n_ori),
+         lambda: quant_spread_plain(half, weak, T[1], n_ori),
+         f"color 8-ori {W // 2}x{H // 2} T={T[1]}",
+         _frontend_work(1, H // 2, W // 2, 3, n_ori, T[1], False, False)),
+        (pyr_down, "pyramid.cu", "", pd_err, lambda: pyr_down(frames),
+         lambda: pyr_down_u8_plain(frames), f"BGR {W}x{H} B=1",
+         (H * W * 3 * 5 // 4, 0)),
+        (linear_memories, "pyramid.cu", "", lm_err,
+         lambda: linear_memories(spreads[0][0], T[0]),
+         lambda: linear_memories_plain(spreads[0][0], T[0]),
+         f"{W}x{H} T={T[0]} B=1",
+         (H * W * 9 + (W // T[0]) * (H // T[0]), 0)),
+        (linear_memories, "pyramid.cu", "", lm_err,
+         lambda: linear_memories(spreads[1][0], T[1]),
+         lambda: linear_memories_plain(spreads[1][0], T[1]),
+         f"{W // 2}x{H // 2} T={T[1]} B=1", (H * W // 4 * 9 + M1, 0)),
+        (coarse_scores, "coarse.cu", "similarity_pallas.py:175", k2_err,
+         lambda: coarse_scores(*k2_args),
+         lambda: coarse_scores_plain(*k2_args), f"K={K} N={N} M={M1} (wide)",
+         _coarse_work(lms[1], off, M1, counted=True)),
+        (extract_counted, "extract.cu", "", ex_err,
+         lambda: extract_counted(*ex_args),
+         lambda: extract_counted_plain(*ex_args),
+         f"B=1 K={K} M={M1} C=256", _extract_work(ex_args, ex, got_pre[2])),
+        (count_prefix, "extract.cu", "", pre_err,
+         lambda: count_prefix(*pre_work),
+         lambda: count_prefix_plain(*pre_work), f"B=1 K={K} M={M1} C=256",
+         _prefix_work(ex_args, got_pre[1], got_pre[2])),
+        (refine_windows, "refine.cu", "refine_pallas.py:67", k3_err,
+         lambda: refine_windows(*k3_args),
+         lambda: refine_windows_plain(*k3_args[:-1]),
+         f"C=256 N={N0} ({int(valid.sum())} live)",
+         _refine_work(lms[0], banks[0], k, valid)),
+    )
+    # port-only kernels: the JAX package computes these in XLA
+    xla = {pyr_down: "shape_based_matching_tpu/ops/filters.py:126",
+           linear_memories: "shape_based_matching_tpu/ops/response.py:147",
+           extract_counted: "shape_based_matching_tpu/ops/similarity.py:776",
+           count_prefix: "shape_based_matching_tpu/ops/similarity.py:776"}
+    records = []
+    for fn, src, replaces, err, kern, plain, shape, work in table:
+        ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        records.append(_record(fn, src, replaces, err, launches,
+                               "jabil_fiducials", ms, plain_ms, work, shape))
+        if fn in xla:
+            records[-1]["replaces"] = xla[fn]
+        print(f"time inspect {fn.__name__} [{shape}]: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{records[-1]['bound_ms']:.4f} ms "
+              f"({records[-1]['bound_by']}) on {card}")
+    print(f"time inspect gate ({len(todo)} matches): batched {gate_ms:.4f} "
+          f"ms, plain {plain_gate_ms:.4f} ms; e2e B=1 {W}x{H} BGR: "
+          f"{e2e_ms:.4f} ms/frame on {card}")
+    return records, {"launches": launches, "steps": steps,
+                     "n_kept": len(got), "n_passed": n_passed,
+                     "n_above": int(n_above[0]), "coarse_route": route,
+                     "coarse_K": K, "coarse_N": N, "M": M1,
+                     "level0_N": N0, "gate_ms": gate_ms,
+                     "plain_gate_ms": plain_gate_ms, "e2e_b1_ms": e2e_ms,
+                     "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -4036,6 +4297,11 @@ def main() -> None:
     t11 = time.perf_counter()
     report["phase_seconds_18"] = t11 - t10
     print(f"seconds: entry points {t11 - t10:.1f}")
+
+    # 19. the fiducial inspection
+    inspect_records, report["inspect"] = inspect_phase(card)
+    records += inspect_records
+    print(f"seconds: inspection {report['inspect']['seconds']:.1f}")
     report["kernels"] = records
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -56,7 +56,9 @@ chain-plan cache misses.
 Trained templates and match results are bit-identical to the JAX
 package's ``Detector`` (template id, position and float32 similarity of
 every match). Subpixel pose refinement of the matches (``match_icp``,
-``match_icp_async``) lives in ``models/icp.py``.
+``match_icp_async``) lives in ``models/icp.py``; the fiducial inspection
+(``inspect``, ``inspect_batch``: match, NMS and the CCORR gate against
+the fiducials of ``set_fiducial``) in ``models/inspect.py``.
 
 **Persistence.** Settings and classes are written and read as the
 reference's OpenCV YAML (``write_settings`` ... ``read_classes``,
@@ -425,6 +427,15 @@ class Detector:
         # (class_id, template_id) -> level-0 feature (x, y), [n, 2] float32
         # (models/icp.py)
         self._icp_pts: dict[tuple, np.ndarray] = {}
+        # the inspection's gate (models/inspect.py): class_id ->
+        # {template_id, or None for the class's other templates: the
+        # fiducial image}; the device bank of every registered template's
+        # normalized reference crop
+        self._fiducials: dict[str, dict] = {}
+        self._gate_bank = None
+        # the inspection's page-locked upload buffer and the event after
+        # the card's last read of it (models/inspect._upload)
+        self._upload_stage = None
 
     # ------------------------------------------------------------------
     # Training
@@ -590,13 +601,15 @@ class Detector:
 
     def _invalidate(self, class_id: str) -> None:
         """Drop every cache that holds the class: its banks and chain
-        plans, every merged bank it is part of, and its ICP points."""
+        plans, every merged bank it is part of, its ICP points and the
+        gate's bank."""
         for group in [g for g in self._banks
                       if g == class_id or (isinstance(g, tuple)
                                            and class_id in g)]:
             self._drop_group(group)
         for key in [k for k in self._icp_pts if k[0] == class_id]:
             del self._icp_pts[key]
+        self._gate_bank = None
 
     def _drop_group(self, group) -> None:
         self._banks.pop(group, None)
@@ -934,6 +947,43 @@ class Detector:
                                cand_cap=cand_cap)
 
     # ------------------------------------------------------------------
+    # Inspection (models/inspect.py)
+    # ------------------------------------------------------------------
+
+    def set_fiducial(self, class_id: str, image, template_ids=None) -> None:
+        """Register the fiducial source image (uint8 gray [h, w] or BGR
+        [h, w, 3]) that the inspection's gate compares the matches of
+        `class_id` with: for the templates in `template_ids`, or in
+        place of every one registered for the class."""
+        image = np.ascontiguousarray(image)
+        fids = self._fiducials.setdefault(class_id, {})
+        if template_ids is None:
+            fids.clear()
+            fids[None] = image
+        else:
+            for tid in template_ids:
+                fids[int(tid)] = image
+        self._gate_bank = None
+
+    def inspect_batch(self, sources, threshold: float, class_ids=None,
+                      nms: float = 0.5, ccorr: float = 0.8) -> list:
+        """The fiducial inspection of B same-shaped uint8 frames, gray
+        [B, H, W] or BGR [B, H, W, 3]: ``match_batch``, greedy NMS at IoU
+        `nms` per frame, and the CCORR gate at `ccorr` (none at 0) of the
+        kept matches whose templates have a fiducial
+        (``set_fiducial``). Per frame every NMS-kept match as an
+        ``Inspected`` (match, ccorr, passed) (``models/inspect.py``)."""
+        from .inspect import inspect_batch
+
+        return inspect_batch(self, sources, threshold, class_ids, nms, ccorr)
+
+    def inspect(self, source, threshold: float, class_ids=None,
+                nms: float = 0.5, ccorr: float = 0.8) -> list:
+        """``inspect_batch`` of one frame, gray [H, W] or BGR [H, W, 3]."""
+        return self.inspect_batch(_one(source), threshold, class_ids, nms,
+                                  ccorr)[0]
+
+    # ------------------------------------------------------------------
     # Persistence (line2Dup.cpp:1489-1599)
     # ------------------------------------------------------------------
 
@@ -951,7 +1001,8 @@ class Detector:
         return doc
 
     def read_settings(self, doc: dict) -> None:
-        """Take the settings of `doc`; drops every class and cache."""
+        """Take the settings of `doc`; drops every class, cache and
+        fiducial."""
         self.pyramid_levels = int(doc["pyramid_levels"])
         self.T_at_level = tuple(int(t) for t in doc["T"])
         self.weak_threshold = float(doc.get("weak_threshold", 30.0))
@@ -964,6 +1015,7 @@ class Detector:
         for class_id in list(self.class_templates):
             self._invalidate(class_id)
         self.class_templates.clear()
+        self._fiducials.clear()
 
     def save_settings(self, path: str, templates_dir: str | None = None,
                       classes=None) -> None:

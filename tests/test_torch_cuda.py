@@ -1614,3 +1614,66 @@ def test_batch_pyramid_is_three_launches_a_level(dev):
     names = [n for n, _ in kern]
     ours = ("pyr_down_kernel", "lm_kernel", "quant_spread_kernel")
     assert names and all(any(k in n for k in ours) for n in names), names
+
+
+def test_inspect_gate_on_the_card_equals_the_cpu(dev):
+    """A 2448x2048 BGR frame of the jabil_fiducials cell's generator (8
+    fiducials, 3 inverted ones): ``Detector.inspect`` on the card, then
+    its NMS-kept matches gated again on the CPU, batched and plain: the
+    same float32 scores and decisions, bit for bit; the ``inspect.*``
+    counters agree with the rows."""
+    from portbench import harness
+    from shape_based_matching_tpu_torch.models import inspect
+
+    dep = harness.load_deployment({"module": "jabil_fiducials"})
+    config = dep._config()
+    traffic = {"api": "inspect", "batch": 1, "pool": 1, "instances": [8],
+               "distractors": [3], "check_frames": 1}
+    pool, _ = dep.frame_pool(config, traffic, 2 ** 31 + 11)
+    det = dep.train(config, 0, dev)
+    got = det.inspect(pool[0], 90.0, nms=0.5, ccorr=0.8)
+
+    def rows(results):
+        return [(r.match.template_id, r.match.x, r.match.y,
+                 int(np.float32(r.match.similarity).view(np.int32)),
+                 int(np.float32(r.ccorr).view(np.int32)), r.passed)
+                for r in results]
+
+    assert sum(r.passed for r in got) == 8 and len(got) >= 11
+    assert det.counters["inspect.frames"] == 1
+    assert det.counters["inspect.gated"] == len(got)
+    assert det.counters["inspect.rejected"] == sum(not r.passed for r in got)
+    cpu = dep.train(config, 0, "cpu")
+    want = inspect.inspect_matches(cpu, pool, [[r.match for r in got]],
+                                   nms=1.0, ccorr=0.8)[0]
+    assert rows(want) == rows(got)
+    scores, passed = inspect._gate_plain(
+        cpu, torch.from_numpy(pool), [(0, r.match) for r in got], 0.8)
+    assert rows(got) == rows(inspect.Inspected(r.match, float(s), bool(p))
+                             for r, s, p in zip(got, scores, passed))
+
+
+def test_inspect_upload_stages_through_page_locked_memory(dev):
+    """``models/inspect._upload`` on the card: host frames of two shapes
+    (2448x2048 BGR frames, then two gray 300x200 frames) arrive bit for bit as ``Tensor.to`` gives them; the buffer is
+    page-locked, kept for calls of one shape and replaced on a new shape;
+    a tensor already on the card passes through as it is."""
+    from shape_based_matching_tpu_torch.models import inspect
+
+    det = Detector(device=dev)
+    rng = np.random.default_rng(5)
+    bgr = [rng.integers(0, 256, size=(1, 2048, 2448, 3), dtype=np.uint8)
+           for _ in range(2)]
+    gray = rng.integers(0, 256, size=(2, 300, 200), dtype=np.uint8)
+    got = inspect._upload(det, bgr[0])
+    buf = det._upload_stage[0]
+    assert buf.is_pinned() and tuple(buf.shape) == bgr[0].shape
+    assert torch.equal(got, torch.from_numpy(bgr[0]).to(dev))
+    got = inspect._upload(det, bgr[1])
+    assert det._upload_stage[0].data_ptr() == buf.data_ptr()
+    assert torch.equal(got, torch.from_numpy(bgr[1]).to(dev))
+    got = inspect._upload(det, gray)
+    assert tuple(det._upload_stage[0].shape) == gray.shape
+    assert torch.equal(got, torch.from_numpy(gray).to(dev))
+    on_card = torch.from_numpy(gray).to(dev)
+    assert inspect._upload(det, on_card) is on_card
